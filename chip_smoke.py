@@ -6,17 +6,27 @@
 Phases:
   1. device: the card's name and power limit (nvidia-smi); TF32 off, so the
      plain PyTorch versions compute in full f32;
-  2. build: both CUDA kernels with one nvcc call (cached by source hash in
-     build/scmgan_tpu_torch/);
+  2. build: the three CUDA sources, one nvcc each, all started together
+     (cached by source hash in build/scmgan_tpu_torch/);
   3. each kernel against its plain version on the card, element by
      element, at full width (minipacman_cf: latent 16, hidden 128, 64x64x3
-     frames, 5 actions, 2 rewards), at B = 8 and at the main path's B = 100;
-  4. the main path: ``measure_prediction_mse`` on the minipacman_cf bundle,
-     B = 100 trajectories x 100 steps, with launch counts read around it and
-     its first steps held against the plain path on the same batch;
-  5. each kernel's time against its plain version, a cuDNN yardstick and
-     its bound, at the main path's shapes (B = 100);
-  6. a ``kernels`` JSON line, the card line, and the result line.
+     frames, 5 actions, 2 rewards; the minipacman_student_h48 transition,
+     hidden 48), at B = 8 and at the main paths' B = 100: the bf16
+     transition at hidden 128 and 48, the decoder, and the int8 transition
+     in its three packings (the calibrated h48 student with joint conv5/6
+     scales; the teacher's static split-half packings of
+     ``quantized_transition`` and ``int8_fused_transition``);
+  4. the first main path: ``measure_prediction_mse`` on the minipacman_cf
+     bundle, B = 100 trajectories x 100 steps, with launch counts read
+     around it and its first steps held against the plain path;
+  5. the second main path: the student fidelity gate ``measure_fidelity``
+     (teacher, exact h48 student, calibrated int8 h48 student; B = 100 x 30
+     steps), with launch counts read around it, its record printed beside
+     the JAX package's recorded one, and the int8 run's pixel-MSE curve held
+     against the plain int8 version on the same batch;
+  6. each kernel's time against its plain version, a library yardstick where
+     PyTorch has one, and its bound, at the main paths' shapes (B = 100);
+  7. a ``kernels`` JSON line, the card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
@@ -38,7 +48,9 @@ import torch.nn.functional as F
 
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
 from scmgan_tpu_torch.data.datasource import allocate_datasource
+from scmgan_tpu_torch.models.quantized import transition_int8_v2
 from scmgan_tpu_torch.ops.kernels import _build
+from scmgan_tpu_torch.ops.kernels import int8_transition as i8
 from scmgan_tpu_torch.ops.kernels.fused_decoder import (
     decode_plain,
     fused_decode,
@@ -51,19 +63,26 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
     transition_plain,
     transition_probs,
 )
-from scmgan_tpu_torch.train.checkpoint import load_model
+from scmgan_tpu_torch.train.checkpoint import load_model, load_pytree
+from scmgan_tpu_torch.train.distill import calibrate_student, measure_fidelity
 
 WATCHDOG_S = 300
 BUNDLE = "pretrained_models/minipacman_cf"
+STUDENT = "pretrained_models/minipacman_student_h48"
 ENV = "minipacman"
 SEED = 20261017
 BATCH = 100
 CHECK_BATCHES = (8, BATCH)
+# A batch whose pixel count (3 x 12 x 12 = 432) leaves the transition
+# kernels' last 128-pixel block partial; at 64 x 64 every block is full.
+RAGGED = (3, 12)
 TIMESTEPS = 100
 COMPARE_STEPS = 10
+FIDELITY_TIMESTEPS = 30    # the settings of the student's fidelity.json
 
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM3 rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances, each with its reason:
@@ -86,6 +105,22 @@ DECODE_ATOL = DECODE_RTOL = 0.02
 #   so that step too is held by the relative limit.
 CURVE_RTOL = 0.05
 CURVE_ATOL = 1e-6
+# - int8 transition: integer sums are exact and the epilogue repeats the
+#   plain version's f32 roundings, so threshold bits must agree exactly.
+#   The sample head's p comes from the kernel's expf and the plain
+#   version's torch.sigmoid (a few ulps apart): a sampled bit may differ
+#   only where |u - p| < EPS_U.
+EPS_U = 1e-6
+# - int8 free-run: the same latents and the same decoder kernel on both
+#   sides, so the curves agree up to the host's float sums.
+INT8_CURVE_RTOL = 1e-6
+INT8_ENTRIES = {
+    # TPU kernel -> (file:line of its pallas_call, the packing of its operands)
+    "quantized_transition": ("scmgan_tpu/ops/pallas/quantized_transition.py:199",
+                             i8.pack_quantized_weights),
+    "int8_fused_transition": ("scmgan_tpu/ops/pallas/int8_kernel.py:201",
+                              i8.pack_int8_weights),
+}
 
 
 def say(*args):
@@ -118,14 +153,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, moved: int):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, moved: int, peak: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = moved / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def binary_latents(rng, b):
-    z = (rng.random((b, 64, 64, 16)) > 0.5).astype(np.float32)
+def binary_latents(rng, b, hw=64):
+    z = (rng.random((b, hw, hw, 16)) > 0.5).astype(np.float32)
     return torch.from_numpy(z).cuda()
 
 
@@ -134,9 +169,10 @@ def onehot_actions(rng, b, num_actions):
     return torch.from_numpy(a).cuda()
 
 
-def check_kernels(pt, pd, z, a, latent):
-    """Hold both kernels against their plain bf16 versions, element by
-    element, on latents ``z`` and one-hot actions ``a``; raise on a miss."""
+def check_transition(pt, z, a, latent, label=""):
+    """Hold the bf16 transition kernel against its plain bf16 version,
+    element by element, on latents ``z`` and one-hot actions ``a``; raise
+    on a miss."""
     bf16 = torch.bfloat16
     b = z.shape[0]
     with torch.inference_mode():
@@ -147,9 +183,9 @@ def check_kernels(pt, pd, z, a, latent):
         flips = got != want
         n_flips = int(flips.sum())
         worst = float((p[flips] - 0.5).abs().max()) if n_flips else 0.0
-        say(f"[check] B={b} transition threshold: {n_flips} of {got.numel()} "
-            f"bits differ; largest |p-0.5| among them {worst:.3g} "
-            f"(limit {EPS_P})")
+        say(f"[check] B={b} transition{label} threshold: {n_flips} of "
+            f"{got.numel()} bits differ; largest |p-0.5| among them "
+            f"{worst:.3g} (limit {EPS_P})")
         if n_flips and worst >= EPS_P:
             raise AssertionError("transition threshold head disagrees")
         t_err = float((got - want).abs().max())
@@ -165,14 +201,21 @@ def check_kernels(pt, pd, z, a, latent):
         worst_s = float((u[diff_s] - p[diff_s]).abs().max()) if n_diff_s else 0.0
         excess = float((got_s - p).sum())
         sigma = float((p * (1 - p)).sum().sqrt())
-        say(f"[check] B={b} transition sample: {n_diff_s} bits differ from the "
-            f"host Philox draw (largest |u-p| {worst_s:.3g}); "
+        say(f"[check] B={b} transition{label} sample: {n_diff_s} bits differ "
+            f"from the host Philox draw (largest |u-p| {worst_s:.3g}); "
             f"sum(s-p) = {excess:.1f}, binomial sd {sigma:.1f}")
         if n_diff_s and worst_s >= EPS_P:
             raise AssertionError("transition sample head disagrees")
         if abs(excess) > BINOMIAL_SIGMAS * max(sigma, 1.0):
             raise AssertionError("transition samples do not follow p")
+    return {"t_err": t_err, "n_flips": n_flips, "n_bits": got.numel()}
 
+
+def check_decoder(pd, z):
+    """Hold the decoder kernel against its plain bf16 version."""
+    bf16 = torch.bfloat16
+    b = z.shape[0]
+    with torch.inference_mode():
         got_d = fused_decode(pd, z).float()
         torch.cuda.synchronize()
         want_d = decode_plain(pd, z, dtype=bf16).float()
@@ -183,8 +226,60 @@ def check_kernels(pt, pd, z, a, latent):
             f"(limit {DECODE_ATOL} + {DECODE_RTOL}|plain|)")
         if not ok or not torch.isfinite(got_d).all():
             raise AssertionError("decoder kernel disagrees with its plain version")
-    return {"t_err": t_err, "n_flips": n_flips, "n_bits": got.numel(),
-            "d_err": d_err}
+    return d_err
+
+
+def check_int8(name, packed, z, a, head):
+    """Hold the int8 kernel against its plain version on int8 latents ``z``:
+    every threshold bit equal, sampled bits equal wherever |u - p| >= EPS_U.
+    Returns (differing threshold bits, bits compared)."""
+    b = z.shape[0]
+    seed = SEED % (1 << 31)
+    with torch.inference_mode():
+        got = i8.int8_transition(packed, z, a, head=head)
+        torch.cuda.synchronize()
+        want = i8.int8_transition_plain(packed, z, a, head=head)
+        n_diff = int((got != want).sum())
+        got_s = i8.int8_transition(packed, z, a, head="sample", seed=seed)
+        u = torch.from_numpy(philox_uniform(seed, (*z.shape[:3], packed["latent_pad"]))).cuda()
+        want_s = i8.int8_transition_plain(packed, z, a, head="sample", u=u)
+        p = torch.sigmoid(i8.int8_transition_logits(packed, z, a))[..., :z.shape[-1]]
+        diff_s = got_s != want_s
+        n_diff_s = int(diff_s.sum())
+        worst_s = float((u[..., :z.shape[-1]][diff_s] - p[diff_s]).abs().max()) \
+            if n_diff_s else 0.0
+    say(f"[check] B={b} {z.shape[1]}x{z.shape[2]} int8 {name} ({packed['order']}, hidden "
+        f"{packed['hidden']}) {head} head: {n_diff} of {got.numel()} bits differ "
+        f"(limit 0); sample head: {n_diff_s} differ from the host Philox draw "
+        f"(largest |u-p| {worst_s:.3g}, limit {EPS_U})")
+    if n_diff:
+        raise AssertionError(f"int8 kernel ({name}) disagrees with its plain version")
+    if n_diff_s and worst_s >= EPS_U:
+        raise AssertionError(f"int8 kernel ({name}) sample head disagrees")
+    return n_diff, got.numel()
+
+
+def int8_cost(packed, z, a):
+    """(operations, bytes) of one int8 step on latents ``z`` as the caller
+    hands them: real channels only (no K or N padding)."""
+    b, h, w, latent = z.shape
+    hid, acts = packed["hidden"], packed["num_actions"]
+    ops = 2 * b * h * w * 9 * ((latent + acts) * hid + 5 * hid * hid
+                                + 2 * hid * latent)
+    moved = nbytes(z, a, z, *i8._operand_tensors(packed))
+    return ops, moved
+
+
+def transition_cost(pt, z, a):
+    """(FLOPs, bytes) of one bf16 transition step (real channels)."""
+    b, h, w, latent = z.shape
+    hid, acts = pt["w2"].shape[-1], a.shape[-1]
+    flops = 2 * b * h * w * 9 * ((latent + acts) * hid + 3 * hid * hid
+                                 + 2 * hid * hid + 2 * hid * latent)
+    # latents in and out (in z's dtype), actions, packed weights and biases
+    moved = (nbytes(z, a, z) + nbytes(*(pt[f"w{i}"] for i in range(1, 7)))
+             + nbytes(*(pt[f"b{i}"] for i in range(1, 7))))
+    return flops, moved
 
 
 # ---------------------------------------------------------------------------
@@ -251,26 +346,49 @@ def main() -> int:
     say(f"[build] {lib_path.name} in {build_s:.2f} s")
 
     # 3. kernels against their plain versions, at B = 8 and at the main
-    # path's B = 100
+    # paths' B = 100
     model = load_model(BUNDLE, device="cuda")
+    student = load_pytree(f"{STUDENT}/model-transition.npz", "cuda")
     latent = model.encoder["conv4"]["w"].shape[-1]
     ds = allocate_datasource(ENV, seed=SEED, device="cuda")
     num_actions = ds.binary_input_channels
     pt = pack_transition_weights(model.transition, latent, num_actions)
+    pts = pack_transition_weights(student, latent, num_actions)
     pd = pack_decoder_weights(model.decoder, latent)
+    qt = calibrate_student(model, student, ds, SEED)
+    int8_packings = {   # TPU kernel whose function each packing computes
+        "transition_int8_v2": (qt.packed, "logit"),
+        **{name: (pack(model.transition), "sigmoid")
+           for name, (_, pack) in INT8_ENTRIES.items()},
+    }
     bf16 = torch.bfloat16
     rng = np.random.default_rng(SEED)
-    checks = [check_kernels(pt, pd, binary_latents(rng, b),
-                            onehot_actions(rng, b, num_actions), latent)
-              for b in CHECK_BATCHES]
-    t_err = max(c["t_err"] for c in checks)
-    t_mismatch = (sum(c["n_flips"] for c in checks)
-                  / sum(c["n_bits"] for c in checks))
-    d_err = max(c["d_err"] for c in checks)
+    checks, checks_h48, int8_checks, d_errs = [], [], {k: [] for k in int8_packings}, []
+    for b in CHECK_BATCHES:
+        z, a = binary_latents(rng, b), onehot_actions(rng, b, num_actions)
+        checks.append(check_transition(pt, z, a, latent))
+        d_errs.append(check_decoder(pd, z))
+        checks_h48.append(check_transition(pts, z, a, latent, " (h48 student)"))
+        for name, (packed, head) in int8_packings.items():
+            int8_checks[name].append(check_int8(name, packed, z.to(torch.int8), a, head))
+    b, hw = RAGGED
+    z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, num_actions)
+    checks.append(check_transition(pt, z, a, latent, f" ({hw}x{hw})"))
+    checks_h48.append(check_transition(pts, z, a, latent, f" (h48 student, {hw}x{hw})"))
+    for name, (packed, head) in int8_packings.items():
+        int8_checks[name].append(check_int8(name, packed, z.to(torch.int8), a, head))
+    t_err = max(c["t_err"] for c in checks + checks_h48)
+    t_mismatch = (sum(c["n_flips"] for c in checks + checks_h48)
+                  / sum(c["n_bits"] for c in checks + checks_h48))
+    d_err = max(d_errs)
+    int8_mismatch = {k: sum(n for n, _ in v) / sum(m for _, m in v)
+                     for k, v in int8_checks.items()}
+    int8_err = {k: float(any(n for n, _ in v)) for k, v in int8_checks.items()}
 
-    # 4. the main path
+    # 4. the first main path: the teacher's free-run
     fused_transition.launches = 0
     fused_decode.launches = 0
+    i8.int8_transition.launches = 0
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -281,7 +399,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused_transition": fused_transition.launches,
-                "fused_decode": fused_decode.launches}
+                "fused_decode": fused_decode.launches,
+                "int8_transition": i8.int8_transition.launches}
     if result is None:
         raise AssertionError("degenerate trajectory batch")
     mse, mse_std, rew, rew_std = result
@@ -292,7 +411,7 @@ def main() -> int:
     say(f"[main] curve length {len(mse)}; pixel MSE first {mse[0]:.6g} "
         f"last {mse[-1]:.6g}; reward MSE first {rew[0]:.6g} last {rew[-1]:.6g}")
     if launches != {"fused_transition": TIMESTEPS - 1,
-                    "fused_decode": TIMESTEPS - 2}:
+                    "fused_decode": TIMESTEPS - 2, "int8_transition": 0}:
         raise AssertionError(f"the main path did not run the kernels: {launches}")
     if not np.isfinite(np.array([mse, mse_std, rew, rew_std])).all():
         raise AssertionError("non-finite MSE curves")
@@ -326,55 +445,136 @@ def main() -> int:
     if not np.allclose(main_curve, p_curve, rtol=CURVE_RTOL, atol=CURVE_ATOL):
         raise AssertionError("main-path curve disagrees with the plain path")
 
-    # 5. times at the main path's shapes (B = 100): inputs as the free-run
+    # 5. the second main path: the student fidelity gate
+    fused_transition.launches = 0
+    fused_decode.launches = 0
+    i8.int8_transition.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fid = measure_fidelity(model, student, ds, tempfile.mkdtemp(prefix="chip_smoke_fid_"),
+                           eval_batch_size=BATCH, eval_timesteps=FIDELITY_TIMESTEPS,
+                           seed=SEED)
+    torch.cuda.synchronize()
+    fid_wall = time.perf_counter() - t0
+    fid_launches = {"fused_transition": fused_transition.launches,
+                    "fused_decode": fused_decode.launches,
+                    "int8_transition": i8.int8_transition.launches}
+    steps = FIDELITY_TIMESTEPS
+    say(f"[fidelity] measure_fidelity B={BATCH} T={steps}: {fid_wall:.3f} s wall "
+        f"(three free-runs, their rollouts and the calibration); launches "
+        f"{fid_launches}")
+    with open(f"{STUDENT}/fidelity.json") as f:
+        recorded = json.load(f)
+    for key in ("teacher_mse", "student_mse", "delta_pct", "student_int8_mse",
+                "int8_delta_pct"):
+        say(f"[fidelity] {key:17s} port {json.dumps(fid[key])}")
+        say(f"[fidelity] {'':17s} JAX  {json.dumps(recorded[key])}")
+    say(f"[fidelity] mse10_delta_pct port {fid['mse10_delta_pct']:.4f}, JAX "
+        f"{recorded['mse10_delta_pct']:.4f} (JAX per seed "
+        f"{recorded['mse10_delta_per_seed']}); within_1pct port "
+        f"{fid['within_1pct']}, JAX {recorded['within_1pct']}")
+    if fid_launches != {"fused_transition": 2 * (steps - 1),
+                        "fused_decode": 3 * (steps - 2),
+                        "int8_transition": steps - 1}:
+        raise AssertionError(f"the fidelity path did not run the kernels: {fid_launches}")
+    if not np.isfinite([v for k in ("teacher_mse", "student_mse", "student_int8_mse")
+                        for v in fid[k].values()]).all():
+        raise AssertionError("non-finite fidelity record")
+
+    student_model = model._replace(transition=student)
+    with torch.inference_mode():
+        batch = ds.collect(BATCH, steps, generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 12345))
+        q_kernel = _free_run_stats(
+            student_model, batch, num_actions,
+            transition_fn=lambda z, a: transition_int8_v2(qt, z, a))[0].cpu().numpy()
+        q_plain = _free_run_stats(
+            student_model, batch, num_actions,
+            transition_fn=lambda z, a: i8.int8_transition_plain(
+                qt.packed, (z > 0.5).to(torch.int8), a).float())[0].cpu().numpy()
+    horizons = sorted(fid["student_int8_mse"])
+    say(f"[fidelity] int8 pixel MSE, kernel {np.array2string(q_kernel[:10], precision=6)}")
+    say(f"[fidelity]                 plain  {np.array2string(q_plain[:10], precision=6)}")
+    if not np.allclose(q_kernel, q_plain, rtol=INT8_CURVE_RTOL, atol=0):
+        raise AssertionError("int8 free-run curve disagrees with the plain int8 version")
+    if not np.allclose([fid["student_int8_mse"][h] for h in horizons],
+                       q_kernel[horizons], rtol=INT8_CURVE_RTOL, atol=0):
+        raise AssertionError("re-collected batch does not reproduce the int8 run")
+
+    # 6. times at the main paths' shapes (B = 100): inputs as the free-run
     # hands them over (f32 latents, f32 one-hot actions).
     rng = np.random.default_rng(SEED + 1)
     z = binary_latents(rng, BATCH)
     a = onehot_actions(rng, BATCH, num_actions)
-    b, h, w = BATCH, 64, 64
-    hidden = pt["w2"].shape[-1]
+    zi = z.to(torch.int8)
     color = pd["color"]
+    b, h, w = BATCH, 64, 64
+    times = {}
     with torch.inference_mode():
-        t_ms = cuda_ms(lambda: fused_transition(pt, z, a))
-        t_plain = cuda_ms(lambda: transition_plain(pt, z, a, dtype=bf16), iters=5)
-        t_lib = cuda_ms(lambda: library_transition(pt, z, a))
-        d_ms = cuda_ms(lambda: fused_decode(pd, z))
-        d_plain = cuda_ms(lambda: decode_plain(pd, z, dtype=bf16), iters=5)
-        d_lib = cuda_ms(lambda: library_decode(pd, z))
-    t_flops = 2 * b * h * w * 9 * ((latent + num_actions) * hidden
-                                   + 3 * hidden * hidden
-                                   + 2 * hidden * hidden + 2 * hidden * latent)
-    # latents in and out (in z's dtype), actions, packed weights and biases
-    t_bytes = (nbytes(z, a, z) + nbytes(*(pt[f"w{i}"] for i in range(1, 7)))
-               + nbytes(*(pt[f"b{i}"] for i in range(1, 7))))
-    t_bound, t_by = bound(t_flops, t_bytes)
+        for key, packed_t in (("fused_transition", pt), ("fused_transition_h48", pts)):
+            times[key] = {
+                "ms": cuda_ms(lambda: fused_transition(packed_t, z, a)),
+                "plain_ms": cuda_ms(lambda: transition_plain(packed_t, z, a, dtype=bf16),
+                                    iters=5),
+                "library_ms": cuda_ms(lambda: library_transition(packed_t, z, a)),
+                "bound": bound(*transition_cost(packed_t, z, a))}
+        times["fused_decode"] = {
+            "ms": cuda_ms(lambda: fused_decode(pd, z)),
+            "plain_ms": cuda_ms(lambda: decode_plain(pd, z, dtype=bf16), iters=5),
+            "library_ms": cuda_ms(lambda: library_decode(pd, z))}
+        for name, (packed, head) in int8_packings.items():
+            times[name] = {
+                "ms": cuda_ms(lambda: i8.int8_transition(packed, zi, a, head=head)),
+                "plain_ms": cuda_ms(lambda: i8.int8_transition_plain(
+                    packed, zi, a, head=head), iters=3),
+                "library_ms": None,
+                "bound": bound(*int8_cost(packed, z, a), peak=PEAK_INT8_OPS)}
     d_flops = 2 * b * h * w * 9 * (latent * pd["w1"].shape[-1]
                                    + pd["w1"].shape[-1] * color)
     d_bytes = (nbytes(z, pd["w1"], pd["w2"], pd["b1"], pd["b2"])
                + b * h * w * color * 2)
-    d_bound, d_by = bound(d_flops, d_bytes)
-    for name, ms, plain, lib, bnd in (
-            ("fused_transition", t_ms, t_plain, t_lib, t_bound),
-            ("fused_decode", d_ms, d_plain, d_lib, d_bound)):
-        say(f"[time] {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"cuDNN {lib:.4f} ms, bound {bnd:.4f} ms "
-            f"({100 * bnd / ms:.1f}% of bound)")
+    times["fused_decode"]["bound"] = bound(d_flops, d_bytes)
+    for name, t in times.items():
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        say(f"[time] {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}; "
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound)")
 
-    # 6. the kernels line
+    # 7. the kernels line.  launches: the sum over the two main paths, each
+    # counted from 0 (launches_by_path splits it).
+    def row(name, key, source, replaces, err, **extra):
+        t = times[key]
+        by_path = {"measure_prediction_mse": launches[extra.pop("counter")],
+                   "measure_fidelity": fid_launches[extra.pop("fid_counter")]}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"], **extra}
+
+    h48 = times["fused_transition_h48"]
+    v2 = times["transition_int8_v2"]
+    serving = {"packing": "transition_int8_v2, calibrated h48 student",
+               "ms": v2["ms"], "plain_ms": v2["plain_ms"], "bound_ms": v2["bound"][0],
+               "mismatch_fraction": int8_mismatch["transition_int8_v2"]}
     kernels = [
-        {"name": "fused_transition", "route": "cuda",
-         "source": "scmgan_tpu_torch/csrc/fused_transition.cu",
-         "replaces": "scmgan_tpu/ops/pallas/fused_transition.py:214",
-         "launches": launches["fused_transition"], "max_abs_err": t_err,
-         "mismatch_fraction": t_mismatch,
-         "ms": t_ms, "plain_ms": t_plain,
-         "bound_ms": t_bound, "bound_by": t_by, "library_ms": t_lib},
-        {"name": "fused_decode", "route": "cuda",
-         "source": "scmgan_tpu_torch/csrc/fused_decoder.cu",
-         "replaces": "scmgan_tpu/ops/pallas/fused_decoder.py:126",
-         "launches": launches["fused_decode"], "max_abs_err": d_err,
-         "ms": d_ms, "plain_ms": d_plain,
-         "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib},
+        row("fused_transition", "fused_transition",
+            "scmgan_tpu_torch/csrc/fused_transition.cu",
+            "scmgan_tpu/ops/pallas/fused_transition.py:214", t_err,
+            counter="fused_transition", fid_counter="fused_transition",
+            mismatch_fraction=t_mismatch,
+            h48={"ms": h48["ms"], "plain_ms": h48["plain_ms"],
+                 "bound_ms": h48["bound"][0], "library_ms": h48["library_ms"]}),
+        row("fused_decode", "fused_decode", "scmgan_tpu_torch/csrc/fused_decoder.cu",
+            "scmgan_tpu/ops/pallas/fused_decoder.py:126", d_err,
+            counter="fused_decode", fid_counter="fused_decode"),
+        *(row(name, name, "scmgan_tpu_torch/csrc/int8_transition.cu", replaces,
+              int8_err[name],
+              counter="int8_transition", fid_counter="int8_transition",
+              mismatch_fraction=int8_mismatch[name],
+              library_note="no PyTorch call computes an int8 convolution",
+              serving_h48=serving)
+          for name, (replaces, _) in INT8_ENTRIES.items()),
     ]
     say(f"[done] build {build_s:.2f} s, total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

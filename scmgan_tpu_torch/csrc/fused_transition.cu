@@ -17,7 +17,8 @@
 // activation to device memory in bf16 (the layers' reuse of it runs from L2).
 // A block computes 128 output pixels x all output channels with bf16 tensor
 // core MMAs (WMMA 16x16x16, f32 accumulation), stepping K in 32-channel slices
-// of one tap, double-buffered in shared memory with the next slice's global
+// of one tap (a tap's last slice zero-filled where Cin is not a multiple of
+// 32, as at hidden 48 and 80), double-buffered in shared memory with the next slice's global
 // loads in flight during the MMAs.  Circular wrap is index arithmetic in the
 // loads (no padded copy); conv1 builds its latent + one-hot action input on
 // load (the concat is never stored); conv5 and conv6 read their skip concat
@@ -33,7 +34,10 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 using namespace nvcuda;
+using scm::wrap;
 
 namespace {
 
@@ -52,44 +56,23 @@ struct ConvArgs {
   const float* bias;          // (cout)
   __nv_bfloat16* out;         // NHWC, cout channels
   int batch, height, width;
-  int cin;                    // K per tap; the first layer's padded virtual width
+  int cin;                    // K per tap, a multiple of 8; the first layer's
+                              // padded virtual width (a multiple of 32)
   int c0;                     // channels taken from in0 (first layer: latent)
   int actions;                // first layer: one-hot channels after the latent
   int cout;                   // == the block's N tile
   unsigned long long seed;    // sample head
 };
 
-// Philox4x32-10 (Salmon et al., SC'11): counter = (lo, hi, 0, 0), key = seed.
-// Returns the first output word.  Mirrored bit for bit by
-// fused_transition.py::philox_uniform.
-__device__ __forceinline__ uint32_t philox_u32(unsigned long long counter,
-                                               unsigned long long seed) {
-  uint32_t c0 = (uint32_t)counter, c1 = (uint32_t)(counter >> 32), c2 = 0, c3 = 0;
-  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
-    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
-}
-
 // Two blocks per SM: ptxas then caps a thread at 128 registers (a few bytes
 // spill), and the second block's loads overlap the first one's MMAs.
 template <int BN, bool FIRST, int HEAD>
 __global__ void __launch_bounds__(THREADS, 2)
 conv3x3_circular(const ConvArgs p) {
-  constexpr int WARPS_N = BN >= 64 ? 2 : 1;
+  constexpr int WARPS_N = (BN >= 64 && BN % 32 == 0) ? 2 : 1;
   constexpr int WARPS_M = 8 / WARPS_N;
-  constexpr int WM = BM / WARPS_M;          // rows per warp: 32 (BN 128) or 16
-  constexpr int WN = BN / WARPS_N;          // cols per warp: 64 or 16
+  constexpr int WM = BM / WARPS_M;          // rows per warp: 32 or 16
+  constexpr int WN = BN / WARPS_N;          // cols per warp: a multiple of 16
   constexpr int FM = WM / 16, FN = WN / 16;
   constexpr int B_LD = BN + 8;
   constexpr int B_VECS = BK * BN / 8;       // 16-byte vectors per B slice
@@ -103,7 +86,7 @@ conv3x3_circular(const ConvArgs p) {
   const int H = p.height, W = p.width, hw = H * W;
   const long long M = (long long)p.batch * hw;
   const long long m0 = (long long)blockIdx.x * BM;
-  const int slices = p.cin / BK;
+  const int slices = (p.cin + BK - 1) / BK;   // per tap
   const int ksteps = 9 * slices;
 
   // A slice: 128 pixels x 4 vectors of 8 channels; thread t loads vector t % 4
@@ -126,13 +109,13 @@ conv3x3_circular(const ConvArgs p) {
   uint4 b_reg[B_PER_THREAD];
 
   auto load_slice = [&](int ks) {
-    const int tap = ks / slices;
-    const int cbase = (ks % slices) * BK + a_vec * 8;
+    const int tap = ks / slices, k0 = (ks % slices) * BK;
+    const int cbase = k0 + a_vec * 8;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       a_reg[i] = make_uint4(0, 0, 0, 0);
-      if (!a_ok[i]) continue;
+      if (!a_ok[i] || cbase >= p.cin) continue;
       const long long pix =
           ((long long)a_b[i] * H + wrap(a_y[i] + dy, H)) * W + wrap(a_x[i] + dx, W);
       if (FIRST) {
@@ -154,11 +137,15 @@ conv3x3_circular(const ConvArgs p) {
         a_reg[i] = *reinterpret_cast<const uint4*>(src);
       }
     }
-    const __nv_bfloat16* wk = p.w + (size_t)ks * BK * BN;
+    // rows past the tap's Cin belong to the next tap: zero them
+    const __nv_bfloat16* wk = p.w + ((size_t)tap * p.cin + k0) * BN;
 #pragma unroll
     for (int i = 0; i < B_PER_THREAD; ++i) {
       const int v = tid + i * THREADS;
-      if (v < B_VECS) b_reg[i] = *reinterpret_cast<const uint4*>(wk + (size_t)v * 8);
+      if (v < B_VECS)
+        b_reg[i] = k0 + v / (BN / 8) < p.cin
+                       ? *reinterpret_cast<const uint4*>(wk + (size_t)v * 8)
+                       : make_uint4(0, 0, 0, 0);
     }
   };
 
@@ -235,9 +222,8 @@ conv3x3_circular(const ConvArgs p) {
             if (HEAD == THRESHOLD) {
               y = prob > 0.5f ? 1.f : 0.f;
             } else {
-              const uint32_t bits =
-                  philox_u32((unsigned long long)gm * p.cout + col + e, p.seed);
-              const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);
+              const float u = scm::philox_uniform(
+                  (unsigned long long)gm * p.cout + col + e, p.seed);
               y = u < prob ? 1.f : 0.f;
             }
           }
@@ -259,14 +245,54 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The six launches of one step at hidden width HID.
+template <int HID>
+cudaError_t step(ConvArgs a, const void* z, const void* act,
+                 const void* const* w, const void* const* b,
+                 void* h1, void* h2, void* h3, void* h4, void* out,
+                 int latent, int actions, int cin1, int latent_pad, int sample,
+                 cudaStream_t stream) {
+  typedef const __nv_bfloat16* In;
+  typedef __nv_bfloat16* Out;
+  cudaError_t e;
+
+  // conv1: [z | one-hot action | 0] -> h1
+  a.in0 = (In)z; a.in1 = nullptr; a.act = (const float*)act;
+  a.w = (In)w[0]; a.bias = (const float*)b[0]; a.out = (Out)h1;
+  a.cin = cin1; a.c0 = latent; a.actions = actions; a.cout = HID;
+  if ((e = launch<HID, true, LRELU>(a, stream)) != cudaSuccess) return e;
+
+  a.act = nullptr; a.actions = 0; a.cin = HID; a.c0 = HID;
+  // conv2: h1 -> h2; conv3: h2 -> h3; conv4: h3 -> h4
+  a.in0 = (In)h1; a.w = (In)w[1]; a.bias = (const float*)b[1]; a.out = (Out)h2;
+  if ((e = launch<HID, false, LRELU>(a, stream)) != cudaSuccess) return e;
+  a.in0 = (In)h2; a.w = (In)w[2]; a.bias = (const float*)b[2]; a.out = (Out)h3;
+  if ((e = launch<HID, false, LRELU>(a, stream)) != cudaSuccess) return e;
+  a.in0 = (In)h3; a.w = (In)w[3]; a.bias = (const float*)b[3]; a.out = (Out)h4;
+  if ((e = launch<HID, false, LRELU>(a, stream)) != cudaSuccess) return e;
+
+  // conv5: [h4 | h2] -> h5 (into h3's buffer)
+  a.cin = 2 * HID; a.c0 = HID;
+  a.in0 = (In)h4; a.in1 = (In)h2; a.w = (In)w[4]; a.bias = (const float*)b[4];
+  a.out = (Out)h3;
+  if ((e = launch<HID, false, LRELU>(a, stream)) != cudaSuccess) return e;
+
+  // conv6: [h5 | h1] -> sigmoid -> threshold or sample
+  a.in0 = (In)h3; a.in1 = (In)h1; a.w = (In)w[5]; a.bias = (const float*)b[5];
+  a.out = (Out)out; a.cout = latent_pad;
+  return sample ? launch<16, false, SAMPLE>(a, stream)
+                : launch<16, false, THRESHOLD>(a, stream);
+}
+
 }  // namespace
 
 // One transition step: z (B,H,W,latent) bf16 and act (B,actions) f32 ->
 // out (B,H,W,latent_pad) bf16 latents in {0, 1}.  h1..h4 are caller-allocated
 // (B,H,W,hidden) bf16 scratch; h5 reuses h3's buffer.  Weights are the
 // (9, Cin, Cout) bf16 stacks of pack_transition_weights, biases f32.
-// Requires hidden == 128, latent_pad == 16 and cin1 a multiple of 32 that
-// holds latent + actions.  Returns the first launch error, or 0.
+// Requires hidden in {48, 64, 80, 128} (the shipped teacher and students),
+// latent_pad == 16 and cin1 a multiple of 32 that holds latent + actions.
+// Returns the first launch error, or 0.
 extern "C" int scm_transition_step(
     const void* z, const void* act,
     const void* w1, const void* w2, const void* w3, const void* w4,
@@ -277,41 +303,21 @@ extern "C" int scm_transition_step(
     int batch, int height, int width, int latent, int actions, int cin1,
     int hidden, int latent_pad, int sample, unsigned long long seed,
     void* stream_handle) {
-  if (hidden != 128 || latent_pad != 16 || cin1 % BK != 0 ||
-      latent + actions > cin1 || batch < 1 || height < 1 || width < 1)
+  if (latent_pad != 16 || cin1 % BK != 0 || latent + actions > cin1 ||
+      batch < 1 || height < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_handle;
-  typedef const __nv_bfloat16* In;
-  typedef __nv_bfloat16* Out;
+  const void* w[6] = {w1, w2, w3, w4, w5, w6};
+  const void* b[6] = {b1, b2, b3, b4, b5, b6};
   ConvArgs a{};
   a.batch = batch; a.height = height; a.width = width; a.seed = seed;
-  cudaError_t e;
-
-  // conv1: [z | one-hot action | 0] -> h1
-  a.in0 = (In)z; a.in1 = nullptr; a.act = (const float*)act;
-  a.w = (In)w1; a.bias = (const float*)b1; a.out = (Out)h1;
-  a.cin = cin1; a.c0 = latent; a.actions = actions; a.cout = hidden;
-  if ((e = launch<128, true, LRELU>(a, stream)) != cudaSuccess) return (int)e;
-
-  a.act = nullptr; a.actions = 0; a.cin = hidden; a.c0 = hidden;
-  // conv2: h1 -> h2; conv3: h2 -> h3; conv4: h3 -> h4
-  a.in0 = (In)h1; a.w = (In)w2; a.bias = (const float*)b2; a.out = (Out)h2;
-  if ((e = launch<128, false, LRELU>(a, stream)) != cudaSuccess) return (int)e;
-  a.in0 = (In)h2; a.w = (In)w3; a.bias = (const float*)b3; a.out = (Out)h3;
-  if ((e = launch<128, false, LRELU>(a, stream)) != cudaSuccess) return (int)e;
-  a.in0 = (In)h3; a.w = (In)w4; a.bias = (const float*)b4; a.out = (Out)h4;
-  if ((e = launch<128, false, LRELU>(a, stream)) != cudaSuccess) return (int)e;
-
-  // conv5: [h4 | h2] -> h5 (into h3's buffer)
-  a.cin = 2 * hidden; a.c0 = hidden;
-  a.in0 = (In)h4; a.in1 = (In)h2; a.w = (In)w5; a.bias = (const float*)b5;
-  a.out = (Out)h3;
-  if ((e = launch<128, false, LRELU>(a, stream)) != cudaSuccess) return (int)e;
-
-  // conv6: [h5 | h1] -> sigmoid -> threshold or sample
-  a.in0 = (In)h3; a.in1 = (In)h1; a.w = (In)w6; a.bias = (const float*)b6;
-  a.out = (Out)out; a.cout = latent_pad;
-  e = sample ? launch<16, false, SAMPLE>(a, stream)
-             : launch<16, false, THRESHOLD>(a, stream);
-  return (int)e;
+#define SCM_STEP(HID)                                                       \
+  case HID:                                                                 \
+    return (int)step<HID>(a, z, act, w, b, h1, h2, h3, h4, out, latent,     \
+                          actions, cin1, latent_pad, sample, stream);
+  switch (hidden) {
+    SCM_STEP(48) SCM_STEP(64) SCM_STEP(80) SCM_STEP(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SCM_STEP
 }

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Both sources under ``scmgan_tpu_torch/csrc/`` have a plain ``extern "C"``
-interface and include no PyTorch header, so one ``nvcc`` call compiles them
-into one shared library in seconds; ``ctypes`` loads it.  The library lands
-in ``build/scmgan_tpu_torch/`` under a name keyed by a hash of the sources
-and flags, so an edited source rebuilds and a stale library is never loaded.
-A build writes to a temporary name and renames it into place: there is no
-lock file for a cut-off build to leave behind.
+The sources under ``scmgan_tpu_torch/csrc/`` have a plain ``extern "C"``
+interface and include no PyTorch header.  One ``nvcc -c`` per source, all
+started together, then one link make one shared library in seconds;
+``ctypes`` loads it.  The library lands in ``build/scmgan_tpu_torch/`` under
+a name keyed by a hash of the sources, headers and flags, so an edited
+source rebuilds and a stale library is never loaded.  A build writes to
+temporary names and renames the library into place: there is no lock file
+for a cut-off build to leave behind.
 
 Nothing here runs at import: the first kernel call builds (on the card's
 machine; the CPU tests never reach it).
@@ -19,14 +20,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "scmgan_tpu_torch"
-SOURCES = ("fused_transition.cu", "fused_decoder.cu")
+SOURCES = ("fused_transition.cu", "fused_decoder.cu", "int8_transition.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 120
 
 _P = ctypes.c_void_p
@@ -37,6 +40,8 @@ _SIGNATURES = {
     "scm_transition_step": [_P] * 2 + [_P] * 6 + [_P] * 6 + [_P] * 5
                            + [_I] * 8 + [_I, ctypes.c_ulonglong, _P],
     "scm_decode": [_P] * 6 + [_I] * 6 + [_P],
+    "scm_int8_conv": [_P, _I, _P, _I] + [_P] * 7 + [_I] * 6
+                     + [ctypes.c_ulonglong, _P],
 }
 
 _lib = None
@@ -54,34 +59,56 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libscmgan_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, deadline: float):
+    """Run the commands at once; raise with the first failure's output.  No
+    process outlives the call."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    try:
+        for c, p in zip(cmds, procs):
+            try:
+                _, err = p.communicate(timeout=max(deadline - time.monotonic(), 0))
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s: "
+                                   f"{c[-1]}") from e
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {p.returncode} on {c[-1]}:\n{err}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def build() -> Path:
-    """Compile both sources into one library unless it is already built.
-    Raises with nvcc's output if the build fails or times out."""
+    """Compile the sources (in parallel) and link them into one library,
+    unless it is already built.  Raises with nvcc's output if a step fails
+    or the whole build outlasts ``BUILD_TIMEOUT_S``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    deadline = time.monotonic() + BUILD_TIMEOUT_S
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+                  for obj, name in zip(objs, SOURCES)], deadline)
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], deadline)
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc timed out after {BUILD_TIMEOUT_S} s:\n{e.stderr}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -18,10 +18,12 @@ from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.spectral_norm import sn_weight
 
 # Kernel tiling: conv1's virtual input (latent + actions) is padded to one
-# K step of 32 channels, conv6's output to one 16-wide MMA tile.
+# K step of 32 channels, conv6's output to one 16-wide MMA tile.  The kernel
+# is instantiated for the hidden widths of the shipped teacher (128) and
+# students (48, 64, 80).
 K_STEP = 32
 N_TILE_HEAD = 16
-HIDDEN = 128
+HIDDENS = (48, 64, 80, 128)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -171,9 +173,9 @@ def fused_transition(packed: dict, z: torch.Tensor,
     if (latent != packed["latent_dim"] or num_actions != packed["num_actions"]
             or action_onehot.shape[0] != b):
         raise ValueError("z / action shapes do not match the packed weights")
-    if hidden != HIDDEN or packed["latent_pad"] != N_TILE_HEAD:
-        raise ValueError(
-            f"the kernel takes hidden {HIDDEN} and latent <= {N_TILE_HEAD}")
+    if hidden not in HIDDENS or packed["latent_pad"] != N_TILE_HEAD:
+        raise ValueError(f"the kernel takes hidden in {HIDDENS} and latent "
+                         f"<= {N_TILE_HEAD}; got {hidden}, {latent}")
     weights = [packed[f"w{i}"] for i in range(1, 7)]
     biases = [packed[f"b{i}"] for i in range(1, 7)]
     for t in weights + biases:

@@ -1,0 +1,357 @@
+"""The int8 (w8a8) transition step as a hand-written CUDA kernel, and its
+plain version.
+
+One kernel, ``csrc/int8_transition.cu``, takes the place of both Pallas int8
+transitions and of the XLA int8 serving path:
+
+- ``scmgan_tpu/ops/pallas/quantized_transition.py`` (``quantized_transition``,
+  ``pack_quantized_weights``): static scales, conv5/conv6 quantized as two
+  halves (main, skip), epilogue ``(pa*sa + pb*sb) + b``;
+- ``scmgan_tpu/ops/pallas/int8_kernel.py`` (``int8_fused_transition``,
+  ``pack_int8_weights``): the same weights, epilogue ``(pa*sa + b) + pb*sb``;
+- ``scmgan_tpu/models/quantized.py`` (``transition_int8``,
+  ``transition_int8_v2``): static or calibrated scales, conv5/conv6
+  quantized whole, epilogue ``acc*s + b`` ("joint").
+
+``pack_operands`` turns per-conv int8 weights and their scales into the
+kernel's operands, once per model; ``int8_transition`` runs one step on them.
+``int8_transition_plain`` is the same function in PyTorch: each conv's int32
+sums exactly, as an f64 conv (every |sum| < 2^53; f32 is exact only below
+2^24, and PyTorch has no int8 conv on CUDA), then the same unfused f32
+epilogue.  It is bit-equal to the JAX functions on the same operands.
+
+conv1's one-hot action half is, as in ``transition_int8_v2``, a per-sample
+int32 bias (``_action_bias``): the conv of a spatially constant one-hot map
+is a sum over taps, so the int32 sums are those of the full conv for every
+entry point.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from scmgan_tpu_torch.ops.conv import circular_pad
+from scmgan_tpu_torch.ops.kernels import _build
+from scmgan_tpu_torch.ops.kernels.fused_transition import HIDDENS, philox_uniform
+from scmgan_tpu_torch.ops.spectral_norm import sn_weight
+
+ACT_SCALE = 8.0 / 127.0   # static scale: leaky-ReLU activations in [0, 8]
+
+# Kernel tiling: K runs in 16-channel chunks, 64 rows a stage; the head's
+# output is one 16-wide MMA tile.  Instantiated for the same hidden widths
+# as the bf16 kernel (HIDDENS).
+CHUNK = 16
+STAGE_ROWS = 64
+LATENT_TILE = 16
+ORDERS = {"joint": 0, "sum_first": 1, "bias_first": 2}
+REQUANT = 0   # the hidden layers' epilogue; the output heads follow
+HEADS = {"logit": 1, "sigmoid": 2, "sample": 3}
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _quantize(w: torch.Tensor):
+    """Symmetric per-output-channel int8 (``models/quantized.py::_quantize``,
+    the same as ``quantized_transition.py::_quantize_weight``):
+    w (..., Cout) -> (int8 codes of w's shape, f32 (Cout,) scale)."""
+    co = w.shape[-1]
+    m = w.reshape(-1, co).to(torch.float32)
+    scale = m.abs().amax(dim=0) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(m / scale), -127, 127).to(torch.int8)
+    return q.reshape(w.shape), scale
+
+
+def pack_kernel_weights(w9: torch.Tensor, c0: int) -> torch.Tensor:
+    """(9, Cin, Cout) int8 -> the kernel's layout.  K rows run (tap, channel)
+    over the first ``c0`` input channels, then over the rest (the skip
+    segment), each segment zero-padded to whole 64-row stages; every 16-row
+    chunk is stored output channel by output channel, (chunks, Cout, 16)."""
+    _, cin, cout = w9.shape
+    mats = []
+    for seg in ([w9[:, :c0], w9[:, c0:]] if c0 < cin else [w9]):
+        m = seg.reshape(-1, cout)
+        pad = _round_up(m.shape[0], STAGE_ROWS) - m.shape[0]
+        mats.append(torch.cat([m, m.new_zeros((pad, cout))]))
+    m = torch.cat(mats)
+    return m.reshape(-1, CHUNK, cout).transpose(1, 2).contiguous()
+
+
+def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
+                  *, order: str = "joint") -> dict:
+    """Kernel operands from per-conv int8 HWIO weights (conv1's input axis:
+    latent, then the one-hot actions, then any zero padding).
+
+    ``scales`` maps each conv to its f32 (Cout,) dequant scale; for the
+    split orders conv5 and conv6 map to a pair (main half, skip half).
+    ``requant`` maps conv1-conv5 to a scalar or (Cout,) multiplier.
+    """
+    if order not in ORDERS:
+        raise ValueError(f"order must be one of {sorted(ORDERS)}, not {order!r}")
+    latent = biases["conv6"].shape[0]
+    hidden = weights["conv2"].shape[-1]
+    num_actions = weights["conv1"].shape[2] - latent
+    latent_pad = _round_up(latent, LATENT_TILE)
+    f32 = torch.float32
+
+    def mat(name, cout_pad=None):
+        w = weights[name]
+        w = w.reshape(9, *w.shape[2:])
+        if cout_pad is not None:
+            w = torch.cat([w, w.new_zeros((*w.shape[:2], cout_pad - w.shape[2]))], -1)
+        return w.contiguous()
+
+    def vec(x, n):
+        return torch.as_tensor(x, dtype=f32, device=biases["conv6"].device) \
+            .expand(n).contiguous()
+
+    def pad_out(x):
+        return torch.cat([x.to(f32), x.new_zeros(latent_pad - latent, dtype=f32)])
+
+    w1 = mat("conv1")
+    w = [w1[:, :latent].contiguous()] + [mat(f"conv{i}") for i in (2, 3, 4, 5)] \
+        + [mat("conv6", latent_pad)]
+    s = [vec(scales[f"conv{i}"], hidden) for i in range(1, 5)]
+    if order == "joint":
+        s += [vec(scales["conv5"], hidden), pad_out(scales["conv6"])]
+    else:
+        s += [tuple(vec(x, hidden) for x in scales["conv5"]),
+              tuple(pad_out(x) for x in scales["conv6"])]
+    w1z = torch.cat([w[0], w[0].new_zeros(
+        (9, _round_up(latent, CHUNK) - latent, hidden))], 1)
+    return {
+        "order": order, "latent_dim": latent, "num_actions": num_actions,
+        "hidden": hidden, "latent_pad": latent_pad,
+        "w": w,
+        # conv1's action half summed over the taps: (actions, hidden) int32
+        "w1a": w1[:, latent:latent + num_actions].sum(0, dtype=torch.int32),
+        "kw": [pack_kernel_weights(w1z, w1z.shape[1])]
+              + [pack_kernel_weights(x, hidden) for x in w[1:]],
+        "s": s,
+        "b": [biases[f"conv{i}"].to(f32).contiguous() for i in range(1, 6)]
+             + [pad_out(biases["conv6"])],
+        "rq": [vec(requant[f"conv{i}"], hidden) for i in range(1, 6)],
+    }
+
+
+def _pack_split(params: dict, order: str) -> dict:
+    """Both Pallas packers' quantization: static scales, conv5/conv6 in two
+    separately quantized halves."""
+    w5 = sn_weight(params["conv5"])
+    hidden = w5.shape[-2] // 2
+    w6 = params["conv6"]["w"]
+    weights, scales = {}, {}
+    for name, w, in_scale in [("conv1", sn_weight(params["conv1"]), 1.0),
+                              ("conv2", sn_weight(params["conv2"]), ACT_SCALE),
+                              ("conv3", sn_weight(params["conv3"]), ACT_SCALE),
+                              ("conv4", sn_weight(params["conv4"]), ACT_SCALE)]:
+        weights[name], ws = _quantize(w)
+        scales[name] = ws * in_scale
+    for name, w in [("conv5", w5), ("conv6", w6)]:
+        (qa, sa), (qb, sb) = _quantize(w[:, :, :hidden]), _quantize(w[:, :, hidden:])
+        weights[name] = torch.cat([qa, qb], dim=2)
+        scales[name] = (sa * ACT_SCALE, sb * ACT_SCALE)
+    biases = {f"conv{i}": params[f"conv{i}"]["b"] for i in range(1, 7)}
+    requant = {f"conv{i}": 1.0 / ACT_SCALE for i in range(1, 6)}
+    return pack_operands(weights, scales, biases, requant, order=order)
+
+
+def pack_quantized_weights(params: dict) -> dict:
+    """Operands of ``quantized_transition`` (``quantized_transition.py:52``):
+    static scales, split halves, ``(pa*sa + pb*sb) + b``.  The latent and
+    action counts come from the weights' shapes."""
+    return _pack_split(params, "sum_first")
+
+
+def pack_int8_weights(params: dict) -> dict:
+    """Operands of ``int8_fused_transition`` (``int8_kernel.py:44``): the
+    same quantization, ``(pa*sa + b) + pb*sb``."""
+    return _pack_split(params, "bias_first")
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+def _int_conv(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums of the circular 3x3 conv of int8 x (B, H, W, Cin)
+    with int8 w9 (9, Cin, Cout), held in f64."""
+    _, cin, cout = w9.shape
+    w = w9.to(torch.float64).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    xp = circular_pad(x.to(torch.float64), 1).permute(0, 3, 1, 2)
+    return F.conv2d(xp, w).permute(0, 2, 3, 1)
+
+
+def _action_bias(packed: dict, action_onehot: torch.Tensor) -> torch.Tensor:
+    """conv1's action half as a per-sample (B, hidden) bias of exact int32
+    sums, in f64 (``models/quantized.py::_action_bias``)."""
+    a = action_onehot.to(torch.int32).to(torch.float64)
+    return a @ packed["w1a"].to(device=a.device, dtype=torch.float64)
+
+
+def _qepilogue(acc, scale, bias, requant=None, *, order: str = "joint"):
+    """Dequant + bias (+ leaky-ReLU + requant to int8 when ``requant`` is
+    given) on exact sums, each step rounded to f32 as the references do
+    (``models/quantized.py::_qepilogue``).  Split orders take ``acc`` and
+    ``scale`` as (main, skip) pairs."""
+    f32 = torch.float32
+    if order == "joint":
+        y = acc.to(f32) * scale + bias
+    else:
+        ya, yb = acc[0].to(f32) * scale[0], acc[1].to(f32) * scale[1]
+        y = (ya + yb) + bias if order == "sum_first" else (ya + bias) + yb
+    if requant is None:
+        return y
+    y = torch.where(y >= 0, y, 0.01 * y)
+    return torch.clamp(torch.round(y * requant), -127, 127).to(torch.int8)
+
+
+def int8_transition_logits(packed: dict, z: torch.Tensor,
+                           action_onehot: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic up to conv6's f32 logits (B, H, W,
+    latent_pad), in PyTorch.  z: (B, H, W, latent) int8 in {0, 1}."""
+    w, s, b, rq = packed["w"], packed["s"], packed["b"], packed["rq"]
+    order, hidden = packed["order"], packed["hidden"]
+    acc1 = _int_conv(z, w[0]) + _action_bias(packed, action_onehot)[:, None, None, :]
+    h1 = _qepilogue(acc1, s[0], b[0], rq[0])
+    h2 = _qepilogue(_int_conv(h1, w[1]), s[1], b[1], rq[1])
+    h3 = _qepilogue(_int_conv(h2, w[2]), s[2], b[2], rq[2])
+    h4 = _qepilogue(_int_conv(h3, w[3]), s[3], b[3], rq[3])
+
+    def skip_conv(i, main, skip):
+        if order == "joint":
+            return _int_conv(torch.cat([main, skip], -1), w[i])
+        return (_int_conv(main, w[i][:, :hidden]), _int_conv(skip, w[i][:, hidden:]))
+
+    h5 = _qepilogue(skip_conv(4, h4, h2), s[4], b[4], rq[4], order=order)
+    return _qepilogue(skip_conv(5, h5, h1), s[5], b[5], order=order)
+
+
+def int8_transition_plain(packed: dict, z: torch.Tensor,
+                          action_onehot: torch.Tensor, *, head: str = "logit",
+                          u=None) -> torch.Tensor:
+    """The kernel's function in PyTorch.  z: (B, H, W, latent) int8 in
+    {0, 1}.  ``head``: "logit" (logits > 0), "sigmoid" (sigmoid > 0.5), or
+    "sample" (u < sigmoid, with ``u`` of shape (B, H, W, latent_pad)).
+    Returns int8 latents (B, H, W, latent)."""
+    logits = int8_transition_logits(packed, z, action_onehot)
+    if head == "logit":
+        bits = logits > 0
+    elif head == "sigmoid":
+        bits = torch.sigmoid(logits) > 0.5
+    elif head == "sample":
+        bits = u < torch.sigmoid(logits)
+    else:
+        raise ValueError(f"head must be logit, sigmoid or sample, not {head!r}")
+    return bits[..., :z.shape[-1]].to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+def _operand_tensors(packed: dict):
+    for key in ("kw", "s", "b", "rq"):
+        for x in packed[key]:
+            yield from (x if isinstance(x, tuple) else (x,))
+    yield packed["w1a"]
+
+
+def int8_transition(packed: dict, z: torch.Tensor,
+                    action_onehot: torch.Tensor, *, head: str = "logit",
+                    seed: int = 0) -> torch.Tensor:
+    """One int8 transition step.  z: (B, H, W, latent) int8 in {0, 1};
+    action_onehot: (B, A).  Returns int8 latents (B, H, W, latent); the
+    "sample" head draws from the Philox stream keyed by ``seed``
+    (``fused_transition.philox_uniform``).
+
+    A CUDA tensor launches the kernel (six convs); a CPU tensor takes
+    ``int8_transition_plain``.
+    """
+    b, h, w, latent = z.shape
+    shape_u = (b, h, w, packed["latent_pad"])
+    if head not in HEADS:
+        raise ValueError(f"head must be logit, sigmoid or sample, not {head!r}")
+    if z.device.type == "cpu":
+        u = (torch.from_numpy(philox_uniform(seed, shape_u))
+             if head == "sample" else None)
+        return int8_transition_plain(packed, z, action_onehot, head=head, u=u)
+    if z.device.type != "cuda":
+        raise ValueError(f"unsupported device {z.device}")
+    hidden, num_actions = packed["hidden"], packed["num_actions"]
+    if (z.dtype != torch.int8 or latent != packed["latent_dim"]
+            or action_onehot.shape != (b, num_actions)):
+        raise ValueError("z must be int8 and z / action shapes must match the "
+                         "packed weights")
+    if hidden not in HIDDENS or packed["latent_pad"] != LATENT_TILE:
+        raise ValueError(f"the kernel takes hidden in {HIDDENS} and latent <= "
+                         f"{LATENT_TILE}; got {hidden}, {latent}")
+    for t in _operand_tensors(packed):
+        if t.device != z.device or not t.is_contiguous():
+            raise ValueError("packed operands must be contiguous on z's device")
+    # conv1 reads the latents zero-padded to whole 16-channel chunks
+    zp = torch.zeros((b, h, w, _round_up(latent, CHUNK)), dtype=torch.int8,
+                     device=z.device)
+    zp[..., :latent] = z
+    abias = _action_bias(packed, action_onehot.to(z.device)).to(torch.int32)
+    act = torch.empty((4, b, h, w, hidden), dtype=torch.int8, device=z.device)
+    out = torch.empty(shape_u, dtype=torch.int8, device=z.device)
+    order = ORDERS[packed["order"]]
+    kw, s, bias, rq = packed["kw"], packed["s"], packed["b"], packed["rq"]
+    lib = _build.library()
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def conv(i, x0, x1, y, extra=None, conv_order=0, conv_head=REQUANT):
+        sc = s[i] if isinstance(s[i], tuple) else (s[i], None)
+        rc = lib.scm_int8_conv(
+            x0.data_ptr(), x0.shape[-1], ptr(x1), 0 if x1 is None else x1.shape[-1],
+            kw[i].data_ptr(), sc[0].data_ptr(), ptr(sc[1]), bias[i].data_ptr(),
+            ptr(extra), rq[i].data_ptr() if conv_head == REQUANT else None,
+            y.data_ptr(),
+            b, h, w, y.shape[-1], conv_order, conv_head, seed, stream)
+        _build.check(rc, f"int8_transition conv{i + 1}")
+
+    h1, h2, h3, h4 = act
+    conv(0, zp, None, h1, extra=abias)
+    conv(1, h1, None, h2)
+    conv(2, h2, None, h3)
+    conv(3, h3, None, h4)
+    conv(4, h4, h2, h3, conv_order=order)            # h5 into h3's buffer
+    conv(5, h3, h1, out, conv_order=order, conv_head=HEADS[head])
+    int8_transition.launches += 1
+    return out[..., :latent]
+
+
+# Calls that launched the kernel (one call = one transition step = six conv
+# launches); the CPU path does not count.
+int8_transition.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the Pallas kernels' entry points
+# ---------------------------------------------------------------------------
+
+def quantized_transition(params: dict, z: torch.Tensor,
+                         action_onehot: torch.Tensor, *, sample: bool = False,
+                         seed: int = 0) -> torch.Tensor:
+    """Drop-in int8 serving transition with the operands of
+    ``quantized_transition.py:209``.  z: (B, H, W, latent) binary values;
+    returns binary latents in z's dtype."""
+    packed = pack_quantized_weights(params)
+    out = int8_transition(packed, z.to(torch.int8), action_onehot,
+                          head="sample" if sample else "sigmoid", seed=seed)
+    return out.to(z.dtype)
+
+
+def int8_fused_transition(params: dict, z: torch.Tensor,
+                          action_onehot: torch.Tensor, *, sample: bool = False,
+                          seed: int = 0) -> torch.Tensor:
+    """Drop-in int8 serving transition with the operands of
+    ``int8_kernel.py:211``."""
+    packed = pack_int8_weights(params)
+    out = int8_transition(packed, z.to(torch.int8), action_onehot,
+                          head="sample" if sample else "sigmoid", seed=seed)
+    return out.to(z.dtype)

@@ -1,0 +1,229 @@
+"""The port's int8 transition kernel (ops/kernels/int8_transition.py) on the
+CPU: its plain version in each of its three epilogue orders against the two
+Pallas int8 kernels (in interpret mode, at the small size the JAX package's
+own tests use: latent 8, 16x16, hidden 128) and against the XLA int8 path,
+bit for bit; the kernel's weight layout; and the wrapper's device rules.
+The CUDA kernel runs only on a card: the tests marked ``cuda`` hold it
+against its plain version there and skip here.
+
+Both sides get the same spectral-norm-folded weights (see
+test_torch_port_quantized.py for why).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import scmgan_tpu.ops.pallas.int8_kernel as jik
+import scmgan_tpu.ops.pallas.quantized_transition as jqk
+from scmgan_tpu.models import init_world_model
+from scmgan_tpu.models import quantized as jq
+from scmgan_tpu.ops.spectral_norm import sn_weight as jax_sn_weight
+from scmgan_tpu_torch.models import quantized as tq
+from scmgan_tpu_torch.ops.kernels import fused_transition as tft
+from scmgan_tpu_torch.ops.kernels import int8_transition as ti
+from scmgan_tpu_torch.train.checkpoint import load_pytree
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+LATENT, ACTIONS = 8, 4
+
+
+def _jax(tree):
+    return jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)
+
+
+@pytest.fixture(scope="module")
+def small():
+    """A random transition at the JAX tests' size, as numpy-backed tensors."""
+    wm = init_world_model(jax.random.PRNGKey(0), LATENT, ACTIONS, 1, 3, 3,
+                          img_size=16)
+    return jax.tree.map(lambda x: torch.from_numpy(np.array(x)), wm.transition)
+
+
+@pytest.fixture
+def same_sn(monkeypatch):
+    def sn(p):
+        return torch.from_numpy(np.array(jax_sn_weight(_jax(p))))
+    monkeypatch.setattr(ti, "sn_weight", sn)
+    monkeypatch.setattr(tq, "sn_weight", sn)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    orig = pl.pallas_call
+    interp = lambda *a, **k: orig(*a, **{**k, "interpret": True})  # noqa: E731
+    monkeypatch.setattr(jqk.pl, "pallas_call", interp)
+    monkeypatch.setattr(jik.pl, "pallas_call", interp)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(seed, b=2, hw=16, latent=LATENT, actions=ACTIONS):
+    rng = np.random.default_rng(seed)
+    z = (rng.random((b, hw, hw, latent)) > 0.5).astype(np.float32)
+    a = np.eye(actions, dtype=np.float32)[rng.integers(0, actions, b)]
+    return z, a
+
+
+# -- the plain version against the JAX package ---------------------------
+
+@pytest.mark.parametrize("entry", ["quantized_transition", "int8_fused_transition"])
+def test_plain_matches_pallas(small, same_sn, pallas_interpret, entry):
+    """Split halves, static scales, each kernel's own summation order."""
+    jfn = {"quantized_transition": jqk.quantized_transition,
+           "int8_fused_transition": jik.int8_fused_transition}[entry]
+    tfn = getattr(ti, entry)
+    z, a = _inputs(0)
+    want = np.asarray(jfn(_jax(small), jnp.asarray(z), jnp.asarray(a)))
+    got = tfn(small, torch.from_numpy(z), torch.from_numpy(a))
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 16, LATENT)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0.05 < want.mean() < 0.95
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_plain_joint_matches_xla_int8(small, same_sn, version):
+    z, a = _inputs(1)
+    jfn, tfn = {"v1": (jq.transition_int8, tq.transition_int8),
+                "v2": (jq.transition_int8_v2, tq.transition_int8_v2)}[version]
+    want = np.asarray(jfn(jq.quantize_transition(_jax(small)), jnp.asarray(z),
+                          jnp.asarray(a)))
+    got = tfn(tq.quantize_transition(small), torch.from_numpy(z),
+              torch.from_numpy(a))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_split_orders_differ_only_in_rounding(small, same_sn):
+    """The two Pallas orders round the same three f32 terms differently:
+    their logits agree to a few ulps, not bit for bit."""
+    z, a = _inputs(2)
+    zt, at = torch.from_numpy(z).to(torch.int8), torch.from_numpy(a)
+    la = ti.int8_transition_logits(ti.pack_quantized_weights(small),
+                                   zt, at)
+    lb = ti.int8_transition_logits(ti.pack_int8_weights(small),
+                                   zt, at)
+    np.testing.assert_allclose(la.numpy(), lb.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# -- packing -------------------------------------------------------------
+
+def _unpack(kw, c0, cin, cout):
+    """Invert pack_kernel_weights: (chunks, Cout, 16) -> (9, Cin, Cout)."""
+    m = kw.transpose(1, 2).reshape(-1, cout)
+    segs, row = [], 0
+    for c in ([c0, cin - c0] if c0 < cin else [cin]):
+        segs.append(m[row:row + 9 * c].reshape(9, c, cout))
+        row += -(-9 * c // ti.STAGE_ROWS) * ti.STAGE_ROWS
+    assert row == m.shape[0]
+    return torch.cat(segs, dim=1)
+
+
+@pytest.mark.parametrize("bundle,hidden", [("minipacman_cf", 128),
+                                           ("minipacman_student_h48", 48)])
+def test_packing_shapes_and_layout(bundle, hidden):
+    params = load_pytree(os.path.join(REPO, "pretrained_models", bundle,
+                                      "model-transition.npz"), "cpu")
+    stages = lambda c: -(-9 * c // ti.STAGE_ROWS)  # noqa: E731
+    for packed, order in [(tq.quantize_transition(params).packed, "joint"),
+                          (ti.pack_quantized_weights(params), "sum_first"),
+                          (ti.pack_int8_weights(params), "bias_first")]:
+        assert packed["order"] == order
+        assert (packed["hidden"], packed["latent_dim"], packed["num_actions"],
+                packed["latent_pad"]) == (hidden, 16, 5, 16)
+        kw = packed["kw"]
+        assert [tuple(k.shape) for k in kw] == [
+            (stages(16) * 4, hidden, 16), (stages(hidden) * 4, hidden, 16),
+            (stages(hidden) * 4, hidden, 16), (stages(hidden) * 4, hidden, 16),
+            (2 * stages(hidden) * 4, hidden, 16), (2 * stages(hidden) * 4, 16, 16)]
+        assert all(k.dtype == torch.int8 and k.is_contiguous() for k in kw)
+        torch.testing.assert_close(_unpack(kw[0], 16, 16, hidden), packed["w"][0],
+                                   rtol=0, atol=0)
+        for i in range(1, 6):
+            w = packed["w"][i]
+            torch.testing.assert_close(_unpack(kw[i], hidden, w.shape[1], w.shape[2]),
+                                       w, rtol=0, atol=0)
+        assert tuple(packed["w1a"].shape) == (5, hidden)
+        assert packed["w1a"].dtype == torch.int32
+        split = order != "joint"
+        for i in (4, 5):
+            assert isinstance(packed["s"][i], tuple) == split
+        assert all(tuple(r.shape) == (hidden,) for r in packed["rq"])
+        assert tuple(packed["b"][5].shape) == (16,)
+
+
+def test_action_bias_equals_the_action_half_of_conv1(small):
+    """conv1 over [z | one-hot] equals conv1 over z plus the rank-1 bias."""
+    z, a = _inputs(3)
+    packed = tq.quantize_transition(small).packed
+    w1 = tq.quantize_transition(small).weights["conv1"]
+    zt, at = torch.from_numpy(z), torch.from_numpy(a)
+    x = torch.cat([zt, at[:, None, None, :].expand(2, 16, 16, ACTIONS)], -1)
+    full = ti._int_conv(x.to(torch.int8), w1.reshape(9, *w1.shape[2:]))
+    split = ti._int_conv(zt.to(torch.int8), packed["w"][0]) \
+        + ti._action_bias(packed, at)[:, None, None, :]
+    torch.testing.assert_close(full, split, rtol=0, atol=0)
+
+
+# -- the wrapper ----------------------------------------------------------
+
+def test_wrapper_takes_plain_version_on_cpu(small):
+    z, a = _inputs(4)
+    packed = tq.quantize_transition(small).packed
+    zt, at = torch.from_numpy(z).to(torch.int8), torch.from_numpy(a)
+    before = ti.int8_transition.launches
+    for head in ("logit", "sigmoid"):
+        torch.testing.assert_close(
+            ti.int8_transition(packed, zt, at, head=head),
+            ti.int8_transition_plain(packed, zt, at, head=head), rtol=0, atol=0)
+    u = torch.from_numpy(tft.philox_uniform(9, (2, 16, 16, packed["latent_pad"])))
+    sampled = ti.int8_transition(packed, zt, at, head="sample", seed=9)
+    torch.testing.assert_close(
+        sampled, ti.int8_transition_plain(packed, zt, at, head="sample", u=u),
+        rtol=0, atol=0)
+    assert 0.05 < sampled.float().mean() < 0.95
+    assert ti.int8_transition.launches == before  # the CPU path launches nothing
+
+
+def test_wrapper_refuses_other_devices_and_heads(small):
+    packed = tq.quantize_transition(small).packed
+    z = torch.empty((1, 8, 8, LATENT), dtype=torch.int8, device="meta")
+    a = torch.empty((1, ACTIONS), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ti.int8_transition(packed, z, a)
+    with pytest.raises(ValueError, match="head"):
+        ti.int8_transition(packed, z, a, head="requant")
+    with pytest.raises(ValueError, match="order"):
+        ti.pack_operands({}, {}, {}, {}, order="fma")
+
+
+# -- on the card ---------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["joint", "sum_first", "bias_first"])
+@pytest.mark.parametrize("b,hw", [(4, 64), (3, 12)], ids=["full", "ragged"])
+def test_int8_kernel_matches_plain_on_card(card, packing, b, hw):
+    """Bit for bit; at 3 x 12 x 12 = 432 pixels the last 128-pixel block is
+    partial."""
+    params = load_pytree(os.path.join(REPO, "pretrained_models",
+                                      "minipacman_student_h48",
+                                      "model-transition.npz"), card)
+    packed = {"joint": lambda: tq.quantize_transition(params).packed,
+              "sum_first": lambda: ti.pack_quantized_weights(params),
+              "bias_first": lambda: ti.pack_int8_weights(params)}[packing]()
+    z, a = _inputs(5, b=b, hw=hw, latent=16, actions=5)
+    zt = torch.from_numpy(z).to(card, torch.int8)
+    at = torch.from_numpy(a).to(card)
+    for head in ("logit", "sigmoid"):
+        got = ti.int8_transition(packed, zt, at, head=head)
+        want = ti.int8_transition_plain(packed, zt, at, head=head)
+        assert int((got != want).sum()) == 0
