@@ -6,8 +6,9 @@
 Phases:
   1. device: the card's name and power limit (nvidia-smi); TF32 off, so the
      plain PyTorch versions compute in full f32;
-  2. build: the three CUDA sources, one nvcc each, all started together
-     (cached by source hash in build/scmgan_tpu_torch/);
+  2. build: the CUDA sources, one nvcc each, all started together (cached
+     by source hash in build/scmgan_tpu_torch/), and each kernel's
+     registers, shared memory and spill bytes (ptxas -v);
   3. each kernel against its plain version on the card, element by
      element, at full width (minipacman_cf: latent 16, hidden 128, 64x64x3
      frames, 5 actions, 2 rewards; the minipacman_student_h48 transition,
@@ -15,10 +16,16 @@ Phases:
      transition at hidden 128 and 48, the decoder, and the int8 transition
      in its three packings (the calibrated h48 student with joint conv5/6
      scales; the teacher's static split-half packings of
-     ``quantized_transition`` and ``int8_fused_transition``);
+     ``quantized_transition`` and ``int8_fused_transition``); at B = 8 the
+     shapes the main paths do not reach: the bf16 transition at hidden 64
+     and 80 (minipacman_student_h64/h80), conv1 with 4 actions (pong_cf's
+     transition, 20 input channels), the 1-colour decoder of boxes_cf; and
+     both bf16 kernels and the int8 packings on a 12x12 batch;
   4. the first main path: ``measure_prediction_mse`` on the minipacman_cf
      bundle, B = 100 trajectories x 100 steps, with launch counts read
-     around it and its first steps held against the plain path;
+     around it and its first steps held against the plain path; then one
+     free-run under torch.profiler: the card's busy share and the kernels
+     that take its time;
   5. the second main path: the student fidelity gate ``measure_fidelity``
      (teacher, exact h48 student, calibrated int8 h48 student; B = 100 x 30
      steps), with launch counts read around it, its record printed beside
@@ -45,6 +52,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
 from scmgan_tpu_torch.data.datasource import allocate_datasource
@@ -69,12 +77,20 @@ from scmgan_tpu_torch.train.distill import calibrate_student, measure_fidelity
 WATCHDOG_S = 300
 BUNDLE = "pretrained_models/minipacman_cf"
 STUDENT = "pretrained_models/minipacman_student_h48"
+# Shapes the main paths do not reach, checked at B = 8: the other student
+# widths, conv1 with 4 actions (20 input channels), a 1-colour decoder.
+EXTRA_TRANSITIONS = ("pretrained_models/minipacman_student_h64",
+                     "pretrained_models/minipacman_student_h80",
+                     "pretrained_models/pong_cf")
+EXTRA_DECODER = "pretrained_models/boxes_cf"
+EXTRA_BATCH = 8
 ENV = "minipacman"
 SEED = 20261017
 BATCH = 100
 CHECK_BATCHES = (8, BATCH)
-# A batch whose pixel count (3 x 12 x 12 = 432) leaves the transition
-# kernels' last 128-pixel block partial; at 64 x 64 every block is full.
+# A batch of 12 x 12 images: the bf16 kernels' tiles then hold 144 pixels
+# of 256 (transition) and 12 x 12 of 16 x 32 (decoder), and the int8
+# kernel's last 128-pixel block is partial; at 64 x 64 every tile is full.
 RAGGED = (3, 12)
 TIMESTEPS = 100
 COMPARE_STEPS = 10
@@ -211,7 +227,7 @@ def check_transition(pt, z, a, latent, label=""):
     return {"t_err": t_err, "n_flips": n_flips, "n_bits": got.numel()}
 
 
-def check_decoder(pd, z):
+def check_decoder(pd, z, label=""):
     """Hold the decoder kernel against its plain bf16 version."""
     bf16 = torch.bfloat16
     b = z.shape[0]
@@ -222,7 +238,7 @@ def check_decoder(pd, z):
         d_err = float((got_d - want_d).abs().max())
         ok = bool(((got_d - want_d).abs()
                    <= DECODE_ATOL + DECODE_RTOL * want_d.abs()).all())
-        say(f"[check] B={b} decoder: max |kernel - plain| {d_err:.4g} "
+        say(f"[check] B={b} decoder{label}: max |kernel - plain| {d_err:.4g} "
             f"(limit {DECODE_ATOL} + {DECODE_RTOL}|plain|)")
         if not ok or not torch.isfinite(got_d).all():
             raise AssertionError("decoder kernel disagrees with its plain version")
@@ -320,6 +336,29 @@ def library_decode(packed, z):
     return out.permute(0, 2, 3, 1)
 
 
+def profile_free_run(model, batch, num_actions, frames):
+    """One free-run under torch.profiler: device time by kernel, and the
+    card's busy share (kernels run on one stream, so their times add up)
+    of the run's wall time, which the profiler itself lengthens."""
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _free_run_stats(model, batch, num_actions)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    busy = sum(by_name.values()) * 1e-6
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    say(f"[profile] free-run under the profiler: {wall:.3f} s wall, card busy "
+        f"{busy:.3f} s ({100 * busy / wall:.1f}%), {frames / wall:.1f} frames/s")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"[profile]   {us * 1e-3:9.2f} ms  {100 * us * 1e-6 / busy:5.1f}%  {name[:90]}")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -342,8 +381,15 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     build_s = time.perf_counter() - t0
-    _build.library()
+    lib = _build.library()
     say(f"[build] {lib_path.name} in {build_s:.2f} s")
+    smem = {f"conv3x3_wgmma<{n}": lib.scm_transition_smem(n) for n in (16, 48, 64, 80, 128)}
+    smem["decode_kernel"] = lib.scm_decode_smem()
+    for r in _build.ptxas_report():
+        dyn = next((v for k, v in smem.items() if r["kernel"].startswith(k)), None)
+        say(f"[build] {r['kernel']}: {r['registers']} registers, shared "
+            f"{r['smem_static']} B static" + (f" + {dyn} B dynamic" if dyn else "")
+            + f", spill {r['spill_bytes']} B")
 
     # 3. kernels against their plain versions, at B = 8 and at the main
     # paths' B = 100
@@ -375,8 +421,23 @@ def main() -> int:
     z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, num_actions)
     checks.append(check_transition(pt, z, a, latent, f" ({hw}x{hw})"))
     checks_h48.append(check_transition(pts, z, a, latent, f" (h48 student, {hw}x{hw})"))
+    d_errs.append(check_decoder(pd, z, f" ({hw}x{hw})"))
     for name, (packed, head) in int8_packings.items():
         int8_checks[name].append(check_int8(name, packed, z.to(torch.int8), a, head))
+    for path in EXTRA_TRANSITIONS:
+        params = load_pytree(f"{path}/model-transition.npz", "cuda")
+        acts = params["conv1"]["w"].shape[2] - latent
+        px = pack_transition_weights(params, latent, acts)
+        label = f" ({path.split('/')[-1]}, hidden {px['w2'].shape[-1]}, {acts} actions"
+        for b, hw in ((EXTRA_BATCH, 64), RAGGED):
+            z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, acts)
+            checks.append(check_transition(px, z, a, latent, f"{label}, {hw}x{hw})"))
+    dx = pack_decoder_weights(load_pytree(f"{EXTRA_DECODER}/model-decoder.npz", "cuda"),
+                              latent)
+    for b, hw in ((EXTRA_BATCH, 64), RAGGED):
+        d_errs.append(check_decoder(dx, binary_latents(rng, b, hw),
+                                    f" ({EXTRA_DECODER.split('/')[-1]}, {dx['color']} "
+                                    f"colour, {hw}x{hw})"))
     t_err = max(c["t_err"] for c in checks + checks_h48)
     t_mismatch = (sum(c["n_flips"] for c in checks + checks_h48)
                   / sum(c["n_bits"] for c in checks + checks_h48))
@@ -444,6 +505,7 @@ def main() -> int:
         raise AssertionError("re-collected batch does not reproduce the main path")
     if not np.allclose(main_curve, p_curve, rtol=CURVE_RTOL, atol=CURVE_ATOL):
         raise AssertionError("main-path curve disagrees with the plain path")
+    profile_free_run(model, batch, num_actions, frames)
 
     # 5. the second main path: the student fidelity gate
     fused_transition.launches = 0

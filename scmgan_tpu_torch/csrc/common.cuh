@@ -1,4 +1,4 @@
-// Device helpers shared by the transition kernels (fused_transition.cu,
+// Device helpers shared by the transition kernels (transition_conv.cuh,
 // int8_transition.cu).
 
 #pragma once

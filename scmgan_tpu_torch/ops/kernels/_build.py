@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,10 +27,14 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "scmgan_tpu_torch"
-SOURCES = ("fused_transition.cu", "fused_decoder.cu", "int8_transition.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("fused_transition.cu", "transition_h48.cu", "transition_h64.cu",
+           "transition_h80.cu", "transition_h128.cu", "transition_head.cu",
+           "fused_decoder.cu", "int8_transition.cu")
+HEADERS = ("common.cuh", "mma.cuh", "wgmma.cuh", "transition_conv.cuh")
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and spill
+# bytes; build() keeps that report beside the library (ptxas_report()).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 120
 
 _P = ctypes.c_void_p
@@ -37,9 +42,11 @@ _I = ctypes.c_int
 # name -> argtypes; every pointer and the stream as c_void_p, or ctypes would
 # cut them to 32 bits.
 _SIGNATURES = {
-    "scm_transition_step": [_P] * 2 + [_P] * 6 + [_P] * 6 + [_P] * 5
-                           + [_I] * 8 + [_I, ctypes.c_ulonglong, _P],
+    "scm_transition_step": [_P] * 2 + [_P] * 6 + [_P] * 6 + [_P] + [_P] * 5
+                           + [_I] * 12 + [_I, ctypes.c_ulonglong, _P],
+    "scm_transition_smem": [_I],
     "scm_decode": [_P] * 6 + [_I] * 6 + [_P],
+    "scm_decode_smem": [],
     "scm_int8_conv": [_P, _I, _P, _I] + [_P] * 7 + [_I] * 6
                      + [ctypes.c_ulonglong, _P],
 }
@@ -65,26 +72,29 @@ def library_path() -> Path:
     return BUILD_DIR / f"libscmgan_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds, deadline: float):
-    """Run the commands at once; raise with the first failure's output.  No
-    process outlives the call."""
+def _run_all(cmds, deadline: float) -> str:
+    """Run the commands at once; raise with the first failure's output, else
+    return their joined stdout and stderr.  No process outlives the call."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for c in cmds]
+    report = []
     try:
         for c, p in zip(cmds, procs):
             try:
-                _, err = p.communicate(timeout=max(deadline - time.monotonic(), 0))
+                out, err = p.communicate(timeout=max(deadline - time.monotonic(), 0))
             except subprocess.TimeoutExpired as e:
                 raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s: "
                                    f"{c[-1]}") from e
             if p.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed with code {p.returncode} on {c[-1]}:\n{err}")
+            report.append(out + err)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    return "".join(report)
 
 
 def build() -> Path:
@@ -101,15 +111,57 @@ def build() -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     deadline = time.monotonic() + BUILD_TIMEOUT_S
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
-                  for obj, name in zip(objs, SOURCES)], deadline)
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+                           for obj, name in zip(objs, SOURCES)], deadline)
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], deadline)
+        _report_path(out).write_text(report)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
         for obj in objs:
             obj.unlink(missing_ok=True)
     return out
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
+def ptxas_report() -> list[dict]:
+    """Per kernel of the built library, from ptxas -v: its name with the
+    template arguments, registers a thread, static shared memory and spill
+    bytes (stores + loads)."""
+    path = _report_path(library_path())
+    rows, cur = [], None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1)), "registers": None,
+                   "smem_static": 0, "spill_bytes": 0}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_static"] = int(m.group(1))
+    return rows
+
+
+def _kernel_name(mangled: str) -> str:
+    """conv3x3_wgmma<128,0> or decode_kernel from an Itanium-mangled kernel
+    name (integer template arguments only)."""
+    m = re.search(r"(conv3x3_[a-z0-9]+|decode_kernel)(I(?:Li\d+E)+E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
 
 
 def library() -> ctypes.CDLL:

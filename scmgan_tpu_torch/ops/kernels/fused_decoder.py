@@ -2,9 +2,9 @@
 
 Port of ``scmgan_tpu/ops/pallas/fused_decoder.py`` (``fused_decode`` /
 ``fused_decode_packed``, ``pack_decoder_weights``).  The kernel is
-``csrc/fused_decoder.cu``: one launch computes both zero-padded SAME 3x3
-convs with the leaky-ReLU between, keeping the intermediate in shared
-memory.  ``decode_plain`` is the same function in PyTorch with the same
+``csrc/fused_decoder.cu``: one persistent launch computes both zero-padded
+SAME 3x3 convs on bf16 tensor cores with the leaky-ReLU between, keeping the
+intermediate in shared memory.  ``decode_plain`` is the same function in PyTorch with the same
 arithmetic (bf16 intermediate and bf16 logits when ``dtype`` is bf16).
 """
 
@@ -91,11 +91,13 @@ def fused_decode(packed: dict, z: torch.Tensor) -> torch.Tensor:
             raise ValueError("packed weights must be contiguous on z's device")
     if packed["w1"].dtype != torch.bfloat16 or packed["w2"].dtype != torch.bfloat16:
         raise ValueError("the kernel takes weights packed in bfloat16")
-    zb = z.to(torch.bfloat16).contiguous()
+    # The kernel reads f32 latents (as the free-run carries them) and rounds
+    # them to bf16 on load.
+    zk = z.to(torch.float32).contiguous()
     out = torch.empty((b, h, w, color), dtype=torch.bfloat16, device=z.device)
     lib = _build.library()
     rc = lib.scm_decode(
-        zb.data_ptr(), *(t.data_ptr() for t in tensors), out.data_ptr(),
+        zk.data_ptr(), *(t.data_ptr() for t in tensors), out.data_ptr(),
         b, h, w, latent, hidden, color,
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(rc, "fused_decode")

@@ -1,8 +1,9 @@
 """The transition step as a hand-written CUDA kernel, and its plain version.
 
 Port of ``scmgan_tpu/ops/pallas/fused_transition.py`` (``fused_transition``,
-``pack_transition_weights``).  The kernel is ``csrc/fused_transition.cu``:
-six launches of an implicit-GEMM circular 3x3 conv with a fused epilogue.
+``pack_transition_weights``).  The kernel is ``csrc/fused_transition.cu``
+with ``csrc/transition_conv.cuh``: six launches of an implicit-GEMM circular
+3x3 conv on ``wgmma`` with a fused epilogue.
 ``transition_plain`` is the same function in PyTorch, with the same
 arithmetic: bf16 weights, f32 accumulation, activations rounded to bf16
 between layers when ``dtype`` is bf16, or all in f32.
@@ -17,17 +18,59 @@ from scmgan_tpu_torch.ops.conv import conv2d, leaky_relu
 from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.spectral_norm import sn_weight
 
-# Kernel tiling: conv1's virtual input (latent + actions) is padded to one
-# K step of 32 channels, conv6's output to one 16-wide MMA tile.  The kernel
-# is instantiated for the hidden widths of the shipped teacher (128) and
+# conv1's input (latent + actions) is padded to 32 channels in the plain
+# version's weights, conv6's output to one 16-wide MMA tile.  The kernel is
+# instantiated for the hidden widths of the shipped teacher (128) and
 # students (48, 64, 80).
 K_STEP = 32
 N_TILE_HEAD = 16
 HIDDENS = (48, 64, 80, 128)
+# The kernel's K chunk (input channels copied to shared memory at a time, one
+# 128-byte swizzled row a pixel), its tile (output pixels a block), the input
+# pixels a chunk buffer holds, and the most actions conv1's bias takes.
+CHUNK = 64
+TILE_M = 256
+A_SLOTS = 6 * 66
+MAX_ACTIONS = 16
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def kernel_layout(w9: torch.Tensor, segments) -> torch.Tensor:
+    """The kernel's weight layout: a (9, Cin, Cout) stack whose K rows fall
+    in ``segments`` (the channel counts of the input tensors, concatenated
+    along Cin) becomes (chunks, 9, Cout, CHUNK): chunk c holds up to CHUNK
+    channels of one segment for every tap, K-major (the wgmma B operand),
+    zero past the segment's end.  Rows of the result are the TMA boxes the
+    kernel streams in order."""
+    taps, _, cout = w9.shape
+    blocks, off = [], 0
+    for seg in segments:
+        for start in range(0, seg, CHUNK):
+            width = min(CHUNK, seg - start)
+            blk = w9.new_zeros((taps, cout, CHUNK))
+            blk[:, :, :width] = w9[:, off + start:off + start + width, :].transpose(1, 2)
+            blocks.append(blk)
+        off += seg
+    return torch.stack(blocks).contiguous()
+
+
+def tile_plan(height: int, width: int) -> dict:
+    """How the kernel cuts one image into tiles of at most TILE_M output
+    pixels, none straddling two images: whole rows (``rows`` of them) when
+    the width is at most 64, else 4 rows x 64 columns.  ``tws`` is the input
+    pixels a shared-memory row holds (the row itself, or 64 columns with a
+    one-pixel halo each side)."""
+    if width <= 64:
+        tw, tws, col_blocks = width, width, 1
+        rows = TILE_M // width
+    else:
+        tw, tws, rows = 64, 66, 4
+        col_blocks = -(-width // 64)
+    return {"tw": tw, "tws": tws, "rows": rows,
+            "row_blocks": -(-height // rows), "col_blocks": col_blocks}
 
 
 def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
@@ -37,9 +80,13 @@ def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
     Each conv's HWIO weight becomes a (9, Cin, Cout) matrix stack with
     spectral normalization folded in (conv1-5); conv1's input channels are
     zero-padded to ``c_in1_pad``; conv5/conv6 keep their concatenated input
-    axis (main half first, skip half second), which the kernel reads as a
-    split K from two tensors; conv6's output is zero-padded to
-    ``latent_pad``.  Biases stay f32.
+    axis (main half first, skip half second); conv6's output is zero-padded
+    to ``latent_pad``.  Biases stay f32.  Beside them, the kernel's own
+    operands: ``k1``..``k6`` in ``kernel_layout`` (conv1 over the latent
+    channels only, conv5/conv6 as two K segments read from two tensors), and
+    ``w1_act``, conv1's one-hot action weights summed over taps in f32
+    (actions, hidden): the conv of a spatially constant map under circular
+    padding is that sum, so the kernel adds it as a per-sample bias.
     """
     c_in1 = latent_dim + num_actions
     c_in1_pad = _round_up(c_in1, K_STEP)
@@ -57,13 +104,22 @@ def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
                                  (0, 0, 0, c_in1_pad - c_in1))
     w6 = torch.nn.functional.pad(params["conv6"]["w"],
                                  (0, latent_pad - latent_dim))
-    return {
+    ws = {
         "w1": mat(w1),
         "w2": mat(sn_weight(params["conv2"])),
         "w3": mat(sn_weight(params["conv3"])),
         "w4": mat(sn_weight(params["conv4"])),
         "w5": mat(sn_weight(params["conv5"])),
         "w6": mat(w6),
+    }
+    hidden = ws["w2"].shape[-1]
+    segments = {1: (latent_dim,), 2: (hidden,), 3: (hidden,), 4: (hidden,),
+                5: (hidden, hidden), 6: (hidden, hidden)}
+    return {
+        **ws,
+        **{f"k{i}": kernel_layout(ws[f"w{i}"], seg) for i, seg in segments.items()},
+        "w1_act": ws["w1"][:, latent_dim:c_in1, :].to(torch.float32)
+                  .sum(dim=0).contiguous(),
         "b1": bias("conv1"), "b2": bias("conv2"), "b3": bias("conv3"),
         "b4": bias("conv4"), "b5": bias("conv5"),
         "b6": bias("conv6", latent_pad - latent_dim),
@@ -173,12 +229,14 @@ def fused_transition(packed: dict, z: torch.Tensor,
     if (latent != packed["latent_dim"] or num_actions != packed["num_actions"]
             or action_onehot.shape[0] != b):
         raise ValueError("z / action shapes do not match the packed weights")
-    if hidden not in HIDDENS or packed["latent_pad"] != N_TILE_HEAD:
-        raise ValueError(f"the kernel takes hidden in {HIDDENS} and latent "
-                         f"<= {N_TILE_HEAD}; got {hidden}, {latent}")
-    weights = [packed[f"w{i}"] for i in range(1, 7)]
+    if (hidden not in HIDDENS or latent != N_TILE_HEAD
+            or packed["latent_pad"] != N_TILE_HEAD or num_actions > MAX_ACTIONS):
+        raise ValueError(f"the kernel takes hidden in {HIDDENS}, latent "
+                         f"{N_TILE_HEAD} and at most {MAX_ACTIONS} actions; got "
+                         f"{hidden}, {latent}, {num_actions}")
+    weights = [packed[f"k{i}"] for i in range(1, 7)]
     biases = [packed[f"b{i}"] for i in range(1, 7)]
-    for t in weights + biases:
+    for t in weights + biases + [packed["w1_act"]]:
         if t.device != z.device or not t.is_contiguous():
             raise ValueError("packed weights must be contiguous on z's device")
     if any(t.dtype != torch.bfloat16 for t in weights):
@@ -188,13 +246,16 @@ def fused_transition(packed: dict, z: torch.Tensor,
     scratch = torch.empty((4, b, h, w, hidden), dtype=torch.bfloat16,
                           device=z.device)
     out = torch.empty(shape_u, dtype=torch.bfloat16, device=z.device)
+    plan = tile_plan(h, w)
     lib = _build.library()
     rc = lib.scm_transition_step(
         zb.data_ptr(), act.data_ptr(),
         *(t.data_ptr() for t in weights), *(t.data_ptr() for t in biases),
+        packed["w1_act"].data_ptr(),
         *(s.data_ptr() for s in scratch), out.data_ptr(),
-        b, h, w, latent, num_actions, packed["c_in1_pad"], hidden,
-        packed["latent_pad"], int(sample), seed,
+        b, h, w, latent, num_actions, hidden, packed["latent_pad"],
+        plan["tw"], plan["tws"], plan["rows"], plan["row_blocks"],
+        plan["col_blocks"], int(sample), seed,
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(rc, "fused_transition")
     fused_transition.launches += 1

@@ -17,12 +17,21 @@ import scmgan_tpu.ops.pallas.fused_decoder as jfd
 import scmgan_tpu.ops.pallas.fused_transition as jft
 from scmgan_tpu.models import world_model as jwm
 from scmgan_tpu.ops.conv import conv2d as jconv2d
+from scmgan_tpu_torch.ops.conv import conv2d as tconv2d
+from scmgan_tpu_torch.ops.kernels import _build as tkb
 from scmgan_tpu_torch.ops.kernels import fused_decoder as tfd
 from scmgan_tpu_torch.ops.kernels import fused_transition as tft
-from scmgan_tpu_torch.train.checkpoint import load_model
+from scmgan_tpu_torch.train.checkpoint import load_model, load_pytree
 
-BUNDLE = os.path.join(os.path.dirname(__file__), "..", "pretrained_models",
-                      "minipacman_cf")
+MODELS = os.path.join(os.path.dirname(__file__), "..", "pretrained_models")
+BUNDLE = os.path.join(MODELS, "minipacman_cf")
+# Bundles whose shapes differ: minipacman (5 actions, 3 colours), pong (4
+# actions: conv1 takes 20 channels) and boxes (4 actions, 1 colour).
+BUNDLES = ("minipacman_cf", "pong_cf", "boxes_cf")
+# Transitions of every hidden width the kernel takes: the teacher (128) and
+# the students (48, 64, 80; 80 splits into a 64- and a 16-channel chunk).
+TRANSITIONS = ("minipacman_cf", "minipacman_student_h48",
+               "minipacman_student_h64", "minipacman_student_h80", "pong_cf")
 LATENT, ACTIONS = 16, 5
 # f32 mode against XLA: the same convs summed in another order.
 RTOL = ATOL = 1e-5
@@ -55,6 +64,27 @@ def pallas_interpret(monkeypatch):
     monkeypatch.setattr(jfd.pl, "pallas_call", interp)
 
 
+_BUNDLE_CACHE = {}
+
+
+def _bundle(name):
+    """(torch model, JAX model, number of actions) of a shipped bundle."""
+    if name not in _BUNDLE_CACHE:
+        m = load_model(os.path.join(MODELS, name), device="cpu")
+        jm = jwm.WorldModel(**{
+            f: jax.tree.map(lambda t: t.numpy(), getattr(m, f))
+            for f in jwm.WorldModel._fields})
+        _BUNDLE_CACHE[name] = (m, jm, m.transition["conv1"]["w"].shape[2] - LATENT)
+    return _BUNDLE_CACHE[name]
+
+
+def _transition_params(name, device="cpu"):
+    """The transition of a bundle or a student, and its number of actions."""
+    path = os.path.join(MODELS, name, "model-transition.npz")
+    params = load_pytree(path, device)
+    return params, params["conv1"]["w"].shape[2] - LATENT
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -62,18 +92,20 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(seed, b=2, hw=16):
+def _inputs(seed, b=2, hw=16, actions=ACTIONS):
     rng = np.random.default_rng(seed)
     z = (rng.random((b, hw, hw, LATENT)) > 0.5).astype(np.float32)
-    a = np.eye(ACTIONS, dtype=np.float32)[rng.integers(0, ACTIONS, b)]
+    a = np.eye(actions, dtype=np.float32)[rng.integers(0, actions, b)]
     return z, a
 
 
 # -- packing -------------------------------------------------------------
 
-def test_pack_transition_weights_matches_jax(model, jax_model):
-    ours = tft.pack_transition_weights(model.transition, LATENT, ACTIONS)
-    ref = jft.pack_transition_weights(jax_model.transition, LATENT, ACTIONS)
+@pytest.mark.parametrize("bundle", BUNDLES)
+def test_pack_transition_weights_matches_jax(bundle):
+    model, jax_model, actions = _bundle(bundle)
+    ours = tft.pack_transition_weights(model.transition, LATENT, actions)
+    ref = jft.pack_transition_weights(jax_model.transition, LATENT, actions)
     shapes = {k: tuple(ours[k].shape) for k in ("w1", "w2", "w5", "w6", "b1", "b6")}
     assert shapes == {"w1": (9, 32, 128), "w2": (9, 128, 128),
                       "w5": (9, 256, 128), "w6": (9, 256, 16),
@@ -82,8 +114,9 @@ def test_pack_transition_weights_matches_jax(model, jax_model):
     assert (ours["c_in1_pad"], ours["latent_pad"]) == (32, 16)
     f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
     ulp = dict(rtol=2 ** -7, atol=1e-6)  # sigma summed in another order
-    np.testing.assert_allclose(f32(ours["w1"].float())[:, :24], f32(ref["w1"]), **ulp)
-    assert not ours["w1"][:, 21:].any()
+    c_ref = ref["w1"].shape[1]   # JAX pads conv1's input to a multiple of 8
+    np.testing.assert_allclose(f32(ours["w1"].float())[:, :c_ref], f32(ref["w1"]), **ulp)
+    assert not ours["w1"][:, LATENT + actions:].any()
     for i in (2, 3, 4):
         np.testing.assert_allclose(f32(ours[f"w{i}"].float()), f32(ref[f"w{i}"]), **ulp)
     for i in (5, 6):
@@ -95,17 +128,115 @@ def test_pack_transition_weights_matches_jax(model, jax_model):
                                    rtol=1e-6)
 
 
-def test_pack_decoder_weights_matches_jax(model, jax_model):
+@pytest.mark.parametrize("bundle", BUNDLES)
+def test_pack_decoder_weights_matches_jax(bundle):
+    model, jax_model, _ = _bundle(bundle)
     ours = tfd.pack_decoder_weights(model.decoder, LATENT)
     ref = jfd.pack_decoder_weights(jax_model.decoder, LATENT)
+    color = ref["color"]
+    assert color == (1 if bundle == "boxes_cf" else 3)
     assert tuple(ours["w1"].shape) == (9, 16, 64)
-    assert tuple(ours["w2"].shape) == (9, 64, 3)
-    assert ours["color"] == 3
+    assert tuple(ours["w2"].shape) == (9, 64, color)
+    assert ours["color"] == color
     f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
     np.testing.assert_array_equal(f32(ours["w1"].float()), f32(ref["w1"]))
-    np.testing.assert_allclose(f32(ours["w2"].float()), f32(ref["w2"])[..., :3],
+    np.testing.assert_allclose(f32(ours["w2"].float()), f32(ref["w2"])[..., :color],
                                rtol=2 ** -7, atol=1e-6)
-    np.testing.assert_allclose(ours["b2"].numpy(), f32(ref["b2"])[0, :3], rtol=1e-6)
+    np.testing.assert_allclose(ours["b2"].numpy(), f32(ref["b2"])[0, :color],
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", TRANSITIONS)
+def test_kernel_layout_holds_every_weight(name):
+    """k1..k6 hold each (9, Cin, Cout) weight in 64-channel chunks per K
+    segment, K-major, zero past a segment's end; conv1 the latent channels."""
+    params, actions = _transition_params(name)
+    packed = tft.pack_transition_weights(params, LATENT, actions)
+    hidden = packed["w2"].shape[-1]
+    segments = {1: (LATENT,), 2: (hidden,), 3: (hidden,), 4: (hidden,),
+                5: (hidden, hidden), 6: (hidden, hidden)}
+    for i, segs in segments.items():
+        w, k = packed[f"w{i}"], packed[f"k{i}"]
+        cout = w.shape[-1]
+        assert k.dtype == torch.bfloat16 and k.is_contiguous()
+        assert tuple(k.shape) == (sum(-(-c // 64) for c in segs), 9, cout, 64)
+        chunk, off = 0, 0
+        for seg in segs:
+            for start in range(0, seg, 64):
+                width = min(64, seg - start)
+                torch.testing.assert_close(
+                    k[chunk, :, :, :width],
+                    w[:, off + start:off + start + width, :].transpose(1, 2),
+                    rtol=0, atol=0)
+                assert not k[chunk, :, :, width:].any()
+                chunk += 1
+            off += seg
+        assert chunk == k.shape[0]
+
+
+@pytest.mark.parametrize("name", TRANSITIONS)
+def test_action_bias_equals_the_one_hot_half_of_conv1(name):
+    """The kernel's conv1 reads only the latents and adds act @ w1_act: under
+    circular padding that equals the conv of [z | one-hot action]."""
+    params, actions = _transition_params(name)
+    packed = tft.pack_transition_weights(params, LATENT, actions,
+                                         dtype=torch.float32)
+    w1 = packed["w1"]
+    np.testing.assert_allclose(
+        packed["w1_act"].numpy(),
+        w1[:, LATENT:LATENT + actions].sum(dim=0).numpy(), rtol=1e-6, atol=1e-7)
+    z, a = (torch.from_numpy(x) for x in _inputs(8, actions=actions))
+    b, h, w, _ = z.shape
+    x = torch.cat([z, a[:, None, None, :].expand(b, h, w, actions),
+                   z.new_zeros((b, h, w, w1.shape[1] - LATENT - actions))], -1)
+    full = tconv2d({"w": w1.reshape(3, 3, *w1.shape[1:]), "b": packed["b1"]}, x,
+                   circular=True)
+    w1z = w1[:, :LATENT]
+    split = tconv2d({"w": w1z.reshape(3, 3, *w1z.shape[1:]), "b": packed["b1"]}, z,
+                    circular=True) + (a @ packed["w1_act"])[:, None, None, :]
+    np.testing.assert_allclose(split.numpy(), full.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (12, 12), (5, 33), (64, 1), (7, 65),
+                                (100, 130)])
+def test_tile_plan_covers_each_image_once(hw):
+    """Every pixel of an image lies in exactly one tile; a tile stays inside
+    one image, holds at most TILE_M pixels, and its input rows fit the
+    kernel's chunk buffer."""
+    h, w = hw
+    plan = tft.tile_plan(h, w)
+    rows, tw, tws = plan["rows"], plan["tw"], plan["tws"]
+    assert rows * tw <= tft.TILE_M
+    assert (rows + 2) * tws <= tft.A_SLOTS
+    assert tws == (w if w <= 64 else 66) and tw == min(w, 64)
+    seen = np.zeros((h, w), np.int32)
+    for rb in range(plan["row_blocks"]):
+        for cb in range(plan["col_blocks"]):
+            y0, x0 = rb * rows, cb * 64
+            assert y0 < h and x0 < w          # no empty tile
+            seen[y0:y0 + rows, x0:x0 + tw] += 1
+    assert (seen == 1).all()
+
+
+def test_ptxas_report_reads_registers_shared_memory_and_spills(tmp_path, monkeypatch):
+    """The build keeps ptxas -v's output beside the library; ptxas_report
+    turns it into one row per kernel."""
+    lib = tmp_path / "libscmgan_kernels_0.so"
+    monkeypatch.setattr(tkb, "library_path", lambda: lib)
+    (tmp_path / "libscmgan_kernels_0.so.ptxas.txt").write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN6scm_tr13conv3x3_wgmmaILi128ELi0EEEvNS_8ConvArgsE14CUtensorMap_st' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 900 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_113decode_kernelEPKfPK13__nv_bfloat16S1_S4_S1_PS2_iiii' for 'sm_90a'\n"
+        "ptxas info    : Used 80 registers, 16 bytes smem, 400 bytes cmem[0]\n")
+    assert tkb.ptxas_report() == [
+        {"kernel": "conv3x3_wgmma<128,0>", "registers": 168, "smem_static": 0,
+         "spill_bytes": 12},
+        {"kernel": "decode_kernel", "registers": 80, "smem_static": 16,
+         "spill_bytes": 0}]
 
 
 # -- transition ----------------------------------------------------------
@@ -127,11 +258,13 @@ def test_transition_plain_f32_matches_xla(model, jax_model):
     assert np.all(np.abs(jp[flips] - 0.5) < P_EDGE_F32)
 
 
-def test_transition_plain_bf16_matches_pallas(model, jax_model, pallas_interpret):
-    z, a = _inputs(1)
+@pytest.mark.parametrize("bundle", BUNDLES)
+def test_transition_plain_bf16_matches_pallas(bundle, pallas_interpret):
+    model, jax_model, actions = _bundle(bundle)
+    z, a = _inputs(1, actions=actions)
     want = np.asarray(jft.fused_transition(jax_model.transition, jnp.asarray(z),
                                            jnp.asarray(a)))
-    packed = tft.pack_transition_weights(model.transition, LATENT, ACTIONS)
+    packed = tft.pack_transition_weights(model.transition, LATENT, actions)
     zt, at = torch.from_numpy(z), torch.from_numpy(a)
     got = tft.transition_plain(packed, zt, at, dtype=torch.bfloat16).numpy()
     p = tft.transition_probs(packed, zt, at, dtype=torch.bfloat16)[..., :LATENT]
@@ -192,9 +325,10 @@ def test_decode_plain_f32_matches_xla(model, jax_model):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("bundle", BUNDLES)
 @pytest.mark.parametrize("corner", [False, True], ids=["random", "corner"])
-def test_decode_plain_bf16_matches_pallas(model, jax_model, pallas_interpret,
-                                          corner):
+def test_decode_plain_bf16_matches_pallas(bundle, pallas_interpret, corner):
+    model, jax_model, _ = _bundle(bundle)
     z, _ = _inputs(4)
     if corner:  # SAME zero padding: a lone corner pixel must not wrap around
         z = np.zeros_like(z)
@@ -232,10 +366,13 @@ def test_wrappers_refuse_other_devices(model):
 # -- on the card ---------------------------------------------------------
 
 @pytest.mark.cuda
-def test_transition_kernel_matches_plain_on_card(card):
-    m = load_model(BUNDLE, device=card)
-    packed = tft.pack_transition_weights(m.transition, LATENT, ACTIONS)
-    z, a = (torch.from_numpy(x).to(card) for x in _inputs(6, b=4, hw=64))
+@pytest.mark.parametrize("hw", [64, 12])
+@pytest.mark.parametrize("name", TRANSITIONS)
+def test_transition_kernel_matches_plain_on_card(card, name, hw):
+    params, actions = _transition_params(name, card)
+    packed = tft.pack_transition_weights(params, LATENT, actions)
+    z, a = (torch.from_numpy(x).to(card)
+            for x in _inputs(6, b=4, hw=hw, actions=actions))
     got = tft.fused_transition(packed, z, a)
     want = tft.transition_plain(packed, z, a, dtype=torch.bfloat16)
     p = tft.transition_probs(packed, z, a, dtype=torch.bfloat16)[..., :LATENT]
@@ -245,10 +382,12 @@ def test_transition_kernel_matches_plain_on_card(card):
 
 
 @pytest.mark.cuda
-def test_decoder_kernel_matches_plain_on_card(card):
-    m = load_model(BUNDLE, device=card)
+@pytest.mark.parametrize("hw", [64, 12])
+@pytest.mark.parametrize("bundle", BUNDLES)
+def test_decoder_kernel_matches_plain_on_card(card, bundle, hw):
+    m = load_model(os.path.join(MODELS, bundle), device=card)
     packed = tfd.pack_decoder_weights(m.decoder, LATENT)
-    z, _ = _inputs(7, b=4, hw=64)
+    z, _ = _inputs(7, b=4, hw=hw)
     z = torch.from_numpy(z).to(card)
     got = tfd.fused_decode(packed, z).float()
     want = tfd.decode_plain(packed, z, dtype=torch.bfloat16).float()
