@@ -8,7 +8,8 @@ Phases:
      plain PyTorch versions compute in full f32;
   2. build: the CUDA sources, one nvcc each, all started together (cached
      by source hash in build/scmgan_tpu_torch/), and each kernel's
-     registers, shared memory and spill bytes (ptxas -v);
+     registers, shared memory and spill bytes (ptxas -v), the int8 kernel's
+     translation units (``conv3x3_s8<N,split>``) included;
   3. each kernel against its plain version on the card, element by
      element, at full width (minipacman_cf: latent 16, hidden 128, 64x64x3
      frames, 5 actions, 2 rewards; the minipacman_student_h48 transition,
@@ -19,8 +20,10 @@ Phases:
      ``quantized_transition`` and ``int8_fused_transition``); at B = 8 the
      shapes the main paths do not reach: the bf16 transition at hidden 64
      and 80 (minipacman_student_h64/h80), conv1 with 4 actions (pong_cf's
-     transition, 20 input channels), the 1-colour decoder of boxes_cf; and
-     both bf16 kernels and the int8 packings on a 12x12 batch;
+     transition, 20 input channels), the 1-colour decoder of boxes_cf, the
+     int8 kernel at hidden 64 and 80 (static joint and split packings of
+     the same students); and both bf16 kernels and every int8 packing on a
+     12x12 batch;
   4. the first main path: ``measure_prediction_mse`` on the minipacman_cf
      bundle, B = 100 trajectories x 100 steps, with launch counts read
      around it and its first steps held against the plain path; then one
@@ -30,9 +33,14 @@ Phases:
      (teacher, exact h48 student, calibrated int8 h48 student; B = 100 x 30
      steps), with launch counts read around it, its record printed beside
      the JAX package's recorded one, and the int8 run's pixel-MSE curve held
-     against the plain int8 version on the same batch;
+     against the plain int8 version on the same batch; then, printed only,
+     the gate's MSE@t+10 with the teacher and exact student through the
+     plain f32 transition and decoder on that batch (the record's engines
+     run the bf16 kernels; JAX scores them in f32);
   6. each kernel's time against its plain version, a library yardstick where
      PyTorch has one, and its bound, at the main paths' shapes (B = 100);
+     beside each int8 row the int8 kernel in all three epilogue orders and
+     the bf16 kernel at the same hidden width;
   7. a ``kernels`` JSON line, the card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -56,7 +64,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
 from scmgan_tpu_torch.data.datasource import allocate_datasource
-from scmgan_tpu_torch.models.quantized import transition_int8_v2
+from scmgan_tpu_torch.models.quantized import quantize_transition, transition_int8_v2
 from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.kernels import int8_transition as i8
 from scmgan_tpu_torch.ops.kernels.fused_decoder import (
@@ -83,14 +91,18 @@ EXTRA_TRANSITIONS = ("pretrained_models/minipacman_student_h64",
                      "pretrained_models/minipacman_student_h80",
                      "pretrained_models/pong_cf")
 EXTRA_DECODER = "pretrained_models/boxes_cf"
+# The int8 kernel at the other student widths: static joint and split
+# packings (no calibrated packing ships at these widths).
+EXTRA_INT8 = ("pretrained_models/minipacman_student_h64",
+              "pretrained_models/minipacman_student_h80")
 EXTRA_BATCH = 8
 ENV = "minipacman"
 SEED = 20261017
 BATCH = 100
 CHECK_BATCHES = (8, BATCH)
-# A batch of 12 x 12 images: the bf16 kernels' tiles then hold 144 pixels
-# of 256 (transition) and 12 x 12 of 16 x 32 (decoder), and the int8
-# kernel's last 128-pixel block is partial; at 64 x 64 every tile is full.
+# A batch of 12 x 12 images: the transition kernels' tiles then hold 144
+# pixels of 256 (120 of 128 in the int8 kernel's split-order tiles) and the
+# decoder's 12 x 12 of 16 x 32; at 64 x 64 every tile is full.
 RAGGED = (3, 12)
 TIMESTEPS = 100
 COMPARE_STEPS = 10
@@ -130,6 +142,11 @@ EPS_U = 1e-6
 # - int8 free-run: the same latents and the same decoder kernel on both
 #   sides, so the curves agree up to the host's float sums.
 INT8_CURVE_RTOL = 1e-6
+INT8_PACKINGS = {   # static quantization in each epilogue order
+    "joint": lambda params: quantize_transition(params).packed,
+    "sum_first": i8.pack_quantized_weights,
+    "bias_first": i8.pack_int8_weights,
+}
 INT8_ENTRIES = {
     # TPU kernel -> (file:line of its pallas_call, the packing of its operands)
     "quantized_transition": ("scmgan_tpu/ops/pallas/quantized_transition.py:199",
@@ -359,6 +376,32 @@ def profile_free_run(model, batch, num_actions, frames):
         say(f"[profile]   {us * 1e-3:9.2f} ms  {100 * us * 1e-6 / busy:5.1f}%  {name[:90]}")
 
 
+def gate_in_f32(model, student, qt, batch, num_actions, latent, horizon=10):
+    """The gate's MSE@t+``horizon`` on ``batch`` with every engine through
+    the plain f32 transition and the plain f32 decoder (the JAX package's
+    arithmetic), printed beside the record the bf16 kernels give.  The int8
+    student's transition is exact either way."""
+    f32 = torch.float32
+    pd = pack_decoder_weights(model.decoder, latent, dtype=f32)
+    decode = lambda z: decode_plain(pd, z)  # noqa: E731
+
+    def mse(transition, transition_fn):
+        m = model._replace(transition=transition)
+        return float(_free_run_stats(m, batch, num_actions, transition_fn=transition_fn,
+                                     decode_fn=decode)[0][horizon])
+
+    with torch.inference_mode():
+        out = {}
+        for key, params in (("teacher", model.transition), ("student", student)):
+            packed = pack_transition_weights(params, latent, num_actions, dtype=f32)
+            out[key] = mse(params, lambda z, a, pt=packed: transition_plain(pt, z, a))
+        out["int8"] = mse(student, lambda z, a: i8.int8_transition_plain(
+            qt.packed, (z > 0.5).to(torch.int8), a).float())
+    delta = lambda key: 100.0 * (out[key] - out["teacher"]) / out["teacher"]  # noqa: E731
+    out["delta_pct"], out["int8_delta_pct"] = delta("student"), delta("int8")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -383,7 +426,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     lib = _build.library()
     say(f"[build] {lib_path.name} in {build_s:.2f} s")
-    smem = {f"conv3x3_wgmma<{n}": lib.scm_transition_smem(n) for n in (16, 48, 64, 80, 128)}
+    smem = {f"conv3x3_wgmma<{n},": lib.scm_transition_smem(n) for n in (16, 48, 64, 80, 128)}
+    smem.update({f"conv3x3_s8<{n},": lib.scm_int8_smem(n) for n in (16, 48, 64, 80, 128)})
     smem["decode_kernel"] = lib.scm_decode_smem()
     for r in _build.ptxas_report():
         dyn = next((v for k, v in smem.items() if r["kernel"].startswith(k)), None)
@@ -432,6 +476,14 @@ def main() -> int:
         for b, hw in ((EXTRA_BATCH, 64), RAGGED):
             z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, acts)
             checks.append(check_transition(px, z, a, latent, f"{label}, {hw}x{hw})"))
+    for path in EXTRA_INT8:
+        params = load_pytree(f"{path}/model-transition.npz", "cuda")
+        for order, pack in INT8_PACKINGS.items():
+            packed = pack(params)
+            for b, hw in ((EXTRA_BATCH, 64), RAGGED):
+                z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, num_actions)
+                check_int8(f"{path.split('/')[-1]} static", packed, z.to(torch.int8), a,
+                           "sigmoid")
     dx = pack_decoder_weights(load_pytree(f"{EXTRA_DECODER}/model-decoder.npz", "cuda"),
                               latent)
     for b, hw in ((EXTRA_BATCH, 64), RAGGED):
@@ -562,6 +614,15 @@ def main() -> int:
     if not np.allclose([fid["student_int8_mse"][h] for h in horizons],
                        q_kernel[horizons], rtol=INT8_CURVE_RTOL, atol=0):
         raise AssertionError("re-collected batch does not reproduce the int8 run")
+    gate_f32 = gate_in_f32(model, student, qt, batch, num_actions, latent)
+    say(f"[fidelity] MSE@t+10 through the plain f32 transition and decoder, same "
+        f"batch: teacher {gate_f32['teacher']:.6g} (record, bf16 kernels: "
+        f"{fid['teacher_mse'][10]:.6g}); exact student {gate_f32['student']:.6g} "
+        f"({fid['student_mse'][10]:.6g}); int8 student with the f32 decoder "
+        f"{gate_f32['int8']:.6g} ({fid['student_int8_mse'][10]:.6g}); int8 delta "
+        f"{gate_f32['int8_delta_pct']:.4f}% (record {fid['int8_delta_pct'][10]:.4f}%), "
+        f"exact student delta {gate_f32['delta_pct']:.4f}% (record "
+        f"{fid['delta_pct'][10]:.4f}%)")
 
     # 6. times at the main paths' shapes (B = 100): inputs as the free-run
     # hands them over (f32 latents, f32 one-hot actions).
@@ -591,6 +652,17 @@ def main() -> int:
                     packed, zi, a, head=head), iters=3),
                 "library_ms": None,
                 "bound": bound(*int8_cost(packed, z, a), peak=PEAK_INT8_OPS)}
+        # the int8 kernel in every epilogue order (static packings), beside
+        # the bf16 kernel at the same width, in this run
+        int8_orders = {}
+        for width, params, bf16_key in ((128, model.transition, "fused_transition"),
+                                        (48, student, "fused_transition_h48")):
+            row = {order: cuda_ms(lambda packed=pack(params):
+                                  i8.int8_transition(packed, zi, a, head="sigmoid"))
+                   for order, pack in INT8_PACKINGS.items()}
+            row["bf16_ms"] = times[bf16_key]["ms"]
+            int8_orders[width] = row
+        int8_orders[48]["calibrated_joint"] = times["transition_int8_v2"]["ms"]
     d_flops = 2 * b * h * w * 9 * (latent * pd["w1"].shape[-1]
                                    + pd["w1"].shape[-1] * color)
     d_bytes = (nbytes(z, pd["w1"], pd["w2"], pd["b1"], pd["b2"])
@@ -601,6 +673,10 @@ def main() -> int:
         say(f"[time] {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {lib}, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}; "
             f"{100 * t['bound'][0] / t['ms']:.1f}% of bound)")
+    for width, row in int8_orders.items():
+        say(f"[time] int8 kernel at hidden {width}, ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items() if k != "bf16_ms")
+            + f"; bf16 kernel at hidden {width}: {row['bf16_ms']:.4f}")
 
     # 7. the kernels line.  launches: the sum over the two main paths, each
     # counted from 0 (launches_by_path splits it).
@@ -618,7 +694,8 @@ def main() -> int:
     v2 = times["transition_int8_v2"]
     serving = {"packing": "transition_int8_v2, calibrated h48 student",
                "ms": v2["ms"], "plain_ms": v2["plain_ms"], "bound_ms": v2["bound"][0],
-               "mismatch_fraction": int8_mismatch["transition_int8_v2"]}
+               "mismatch_fraction": int8_mismatch["transition_int8_v2"],
+               "orders_ms": int8_orders[48]}
     kernels = [
         row("fused_transition", "fused_transition",
             "scmgan_tpu_torch/csrc/fused_transition.cu",
@@ -635,7 +712,7 @@ def main() -> int:
               counter="int8_transition", fid_counter="int8_transition",
               mismatch_fraction=int8_mismatch[name],
               library_note="no PyTorch call computes an int8 convolution",
-              serving_h48=serving)
+              orders_ms=int8_orders[128], serving_h48=serving)
           for name, (replaces, _) in INT8_ENTRIES.items()),
     ]
     say(f"[done] build {build_s:.2f} s, total {time.perf_counter() - t_start:.1f} s")

@@ -27,8 +27,7 @@
 // registers and stores 16 bytes at a time.  Still unfused across layers:
 // each activation goes to device memory and back through L2 (ROADMAP).
 //
-// Tensor maps are encoded here with cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint so the library needs no -lcuda.
+// Tensor maps are encoded with cuTensorMapEncodeTiled (tensor_map.cuh).
 //
 // Interface: plain C, no PyTorch headers (built by nvcc and loaded with
 // ctypes); every function returns a cudaError_t as int.
@@ -36,6 +35,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "tensor_map.cuh"
 #include "transition_conv.cuh"
 
 using namespace scm_tr;
@@ -54,55 +54,13 @@ SCM_EXTERN(16, SAMPLE)
 
 namespace {
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a kernel-layout weight matrix: rows of 64 bf16 (one K chunk of
-// one tap for one output channel), read as (64, n) boxes in the 128-byte
-// swizzle that the wgmma descriptors expect.
-cudaError_t weight_map(CUtensorMap* map, const void* w, int rows, int n) {
-  const EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {64, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {128};
-  const cuuint32_t box[2] = {64, (cuuint32_t)n};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
-                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 int chunks(int c) { return (c + CHUNK - 1) / CHUNK; }
 
 template <int BN, int HEAD>
 cudaError_t conv(ConvArgs a, const void* w, cudaStream_t stream) {
   CUtensorMap map;
-  const cudaError_t e = weight_map(&map, w, (chunks(a.c0) + chunks(a.c1)) * 9 * BN, BN);
+  const cudaError_t e = scm::weight_map(&map, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                        (chunks(a.c0) + chunks(a.c1)) * 9 * BN, BN);
   if (e != cudaSuccess) return e;
   return launch_conv<BN, HEAD>(a, map, stream);
 }

@@ -55,6 +55,12 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Arrive on `bar` (counted in its expected arrivals) once every cp.async
+// this thread has issued so far has landed.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
 
 // Named barrier over the first `threads` threads' warps (id 1-15).
 __device__ __forceinline__ void named_barrier(int id, int threads) {

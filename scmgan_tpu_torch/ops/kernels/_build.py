@@ -29,8 +29,10 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "scmgan_tpu_torch"
 SOURCES = ("fused_transition.cu", "transition_h48.cu", "transition_h64.cu",
            "transition_h80.cu", "transition_h128.cu", "transition_head.cu",
-           "fused_decoder.cu", "int8_transition.cu")
-HEADERS = ("common.cuh", "mma.cuh", "wgmma.cuh", "transition_conv.cuh")
+           "fused_decoder.cu", "int8_transition.cu", "int8_h48.cu", "int8_h64.cu",
+           "int8_h80.cu", "int8_h128.cu", "int8_head.cu")
+HEADERS = ("common.cuh", "mma.cuh", "wgmma.cuh", "tensor_map.cuh",
+           "transition_conv.cuh", "int8_conv.cuh")
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spill
 # bytes; build() keeps that report beside the library (ptxas_report()).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,8 +49,9 @@ _SIGNATURES = {
     "scm_transition_smem": [_I],
     "scm_decode": [_P] * 6 + [_I] * 6 + [_P],
     "scm_decode_smem": [],
-    "scm_int8_conv": [_P, _I, _P, _I] + [_P] * 7 + [_I] * 6
-                     + [ctypes.c_ulonglong, _P],
+    "scm_int8_step": [_P] * 3 + [_P] * 6 + [_P] * 8 + [_P] * 6 + [_P] * 5
+                     + [_P] * 5 + [_I] * 7 + [_I] * 10 + [ctypes.c_ulonglong, _P],
+    "scm_int8_smem": [_I],
 }
 
 _lib = None

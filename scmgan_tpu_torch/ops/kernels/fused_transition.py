@@ -57,17 +57,18 @@ def kernel_layout(w9: torch.Tensor, segments) -> torch.Tensor:
     return torch.stack(blocks).contiguous()
 
 
-def tile_plan(height: int, width: int) -> dict:
-    """How the kernel cuts one image into tiles of at most TILE_M output
-    pixels, none straddling two images: whole rows (``rows`` of them) when
-    the width is at most 64, else 4 rows x 64 columns.  ``tws`` is the input
+def tile_plan(height: int, width: int, tile_m: int = TILE_M) -> dict:
+    """How a transition kernel cuts one image into tiles of at most
+    ``tile_m`` output pixels (256, or 128 for the int8 kernel's split-order
+    tiles), none straddling two images: whole rows (``rows`` of them) when
+    the width is at most 64, else rows of 64 columns.  ``tws`` is the input
     pixels a shared-memory row holds (the row itself, or 64 columns with a
     one-pixel halo each side)."""
     if width <= 64:
         tw, tws, col_blocks = width, width, 1
-        rows = TILE_M // width
+        rows = tile_m // width
     else:
-        tw, tws, rows = 64, 66, 4
+        tw, tws, rows = 64, 66, tile_m // 64
         col_blocks = -(-width // 64)
     return {"tw": tw, "tws": tws, "rows": rows,
             "row_blocks": -(-height // rows), "col_blocks": col_blocks}

@@ -14,7 +14,9 @@ transitions and of the XLA int8 serving path:
   quantized whole, epilogue ``acc*s + b`` ("joint").
 
 ``pack_operands`` turns per-conv int8 weights and their scales into the
-kernel's operands, once per model; ``int8_transition`` runs one step on them.
+kernel's operands, once per model; ``int8_transition`` runs one step on them
+(``csrc/int8_transition.cu`` with ``csrc/int8_conv.cuh``: six launches of an
+implicit-GEMM circular 3x3 conv on s8 ``wgmma``).
 ``int8_transition_plain`` is the same function in PyTorch: each conv's int32
 sums exactly, as an f64 conv (every |sum| < 2^53; f32 is exact only below
 2^24, and PyTorch has no int8 conv on CUDA), then the same unfused f32
@@ -33,20 +35,29 @@ import torch.nn.functional as F
 
 from scmgan_tpu_torch.ops.conv import circular_pad
 from scmgan_tpu_torch.ops.kernels import _build
-from scmgan_tpu_torch.ops.kernels.fused_transition import HIDDENS, philox_uniform
+from scmgan_tpu_torch.ops.kernels.fused_transition import (
+    HIDDENS,
+    philox_uniform,
+    tile_plan,
+)
 from scmgan_tpu_torch.ops.spectral_norm import sn_weight
 
 ACT_SCALE = 8.0 / 127.0   # static scale: leaky-ReLU activations in [0, 8]
 
-# Kernel tiling: K runs in 16-channel chunks, 64 rows a stage; the head's
-# output is one 16-wide MMA tile.  Instantiated for the same hidden widths
-# as the bf16 kernel (HIDDENS).
-CHUNK = 16
-STAGE_ROWS = 64
+# The kernel's K plan: K runs over (tap, 16-channel unit) of each input
+# tensor ("segment"), two units a k32 wgmma step, four steps (128 bytes) a
+# weight tile; a segment holds at most 128 channels (one 128-byte slot a
+# pixel in shared memory) and starts a new tile.  The head's output is one
+# 16-wide MMA tile.  Instantiated for the same hidden widths as the bf16
+# kernel (HIDDENS).  Split-order convs at N >= 80 run on 128-pixel tiles.
+UNIT = 16
+STEP_UNITS = 2
+TILE_UNITS = 8
+MAX_SEGMENT = 128
 LATENT_TILE = 16
+SPLIT_TILE_M = 128
 ORDERS = {"joint": 0, "sum_first": 1, "bias_first": 2}
-REQUANT = 0   # the hidden layers' epilogue; the output heads follow
-HEADS = {"logit": 1, "sigmoid": 2, "sample": 3}
+HEADS = {"logit": 1, "sigmoid": 2, "sample": 3}   # conv6's; 0 is the hidden layers' requant
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,19 +75,42 @@ def _quantize(w: torch.Tensor):
     return q.reshape(w.shape), scale
 
 
-def pack_kernel_weights(w9: torch.Tensor, c0: int) -> torch.Tensor:
-    """(9, Cin, Cout) int8 -> the kernel's layout.  K rows run (tap, channel)
-    over the first ``c0`` input channels, then over the rest (the skip
-    segment), each segment zero-padded to whole 64-row stages; every 16-row
-    chunk is stored output channel by output channel, (chunks, Cout, 16)."""
+def k_plan(segments) -> list:
+    """The kernel's K order for input tensors of ``segments`` channels
+    (concatenated along Cin): one entry per 16-byte K slot, ``(segment, tap,
+    unit)`` or None for zero padding.  Within a segment the units run tap by
+    tap, unit by unit, two to a k32 step (so a step may span two taps); each
+    segment is padded to whole weight tiles, so no step mixes two
+    segments."""
+    plan = []
+    for seg, c in enumerate(segments):
+        if c % UNIT or not 0 < c <= MAX_SEGMENT:
+            raise ValueError(f"a segment takes a multiple of {UNIT} channels, at "
+                             f"most {MAX_SEGMENT}; got {c}")
+        units = [(seg, tap, j) for tap in range(9) for j in range(c // UNIT)]
+        plan += units + [None] * (_round_up(len(units), TILE_UNITS) - len(units))
+    return plan
+
+
+def pack_kernel_weights(w9: torch.Tensor, segments) -> torch.Tensor:
+    """(9, Cin, Cout) int8 -> the kernel's layout, (tiles, Cout, 128) int8:
+    tile t, row n holds output channel n's weights for K slots 8t .. 8t + 7
+    of ``k_plan(segments)``, 16 bytes (input channels) a slot, zero for
+    padding.  Each row is K-major, the wgmma B operand; one TMA box loads a
+    tile with the 128-byte swizzle."""
     _, cin, cout = w9.shape
-    mats = []
-    for seg in ([w9[:, :c0], w9[:, c0:]] if c0 < cin else [w9]):
-        m = seg.reshape(-1, cout)
-        pad = _round_up(m.shape[0], STAGE_ROWS) - m.shape[0]
-        mats.append(torch.cat([m, m.new_zeros((pad, cout))]))
-    m = torch.cat(mats)
-    return m.reshape(-1, CHUNK, cout).transpose(1, 2).contiguous()
+    if sum(segments) != cin:
+        raise ValueError(f"segments {segments} do not add up to {cin} channels")
+    offsets = [sum(segments[:i]) for i in range(len(segments))]
+    plan = k_plan(segments)
+    m = w9.new_zeros((len(plan), cout, UNIT))
+    for k, slot in enumerate(plan):
+        if slot is not None:
+            seg, tap, j = slot
+            c = offsets[seg] + j * UNIT
+            m[k] = w9[tap, c:c + UNIT, :].T
+    return (m.reshape(-1, TILE_UNITS, cout, UNIT).transpose(1, 2)
+            .reshape(-1, cout, TILE_UNITS * UNIT).contiguous())
 
 
 def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
@@ -120,15 +154,16 @@ def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
         s += [tuple(vec(x, hidden) for x in scales["conv5"]),
               tuple(pad_out(x) for x in scales["conv6"])]
     w1z = torch.cat([w[0], w[0].new_zeros(
-        (9, _round_up(latent, CHUNK) - latent, hidden))], 1)
+        (9, _round_up(latent, UNIT) - latent, hidden))], 1)
     return {
         "order": order, "latent_dim": latent, "num_actions": num_actions,
         "hidden": hidden, "latent_pad": latent_pad,
         "w": w,
         # conv1's action half summed over the taps: (actions, hidden) int32
         "w1a": w1[:, latent:latent + num_actions].sum(0, dtype=torch.int32),
-        "kw": [pack_kernel_weights(w1z, w1z.shape[1])]
-              + [pack_kernel_weights(x, hidden) for x in w[1:]],
+        "kw": [pack_kernel_weights(w1z, (w1z.shape[1],))]
+              + [pack_kernel_weights(x, (hidden,)) for x in w[1:4]]
+              + [pack_kernel_weights(x, (hidden, hidden)) for x in w[4:]],
         "s": s,
         "b": [biases[f"conv{i}"].to(f32).contiguous() for i in range(1, 6)]
              + [pad_out(biases["conv6"])],
@@ -291,36 +326,32 @@ def int8_transition(packed: dict, z: torch.Tensor,
     for t in _operand_tensors(packed):
         if t.device != z.device or not t.is_contiguous():
             raise ValueError("packed operands must be contiguous on z's device")
-    # conv1 reads the latents zero-padded to whole 16-channel chunks
-    zp = torch.zeros((b, h, w, _round_up(latent, CHUNK)), dtype=torch.int8,
-                     device=z.device)
-    zp[..., :latent] = z
-    abias = _action_bias(packed, action_onehot.to(z.device)).to(torch.int32)
+    # conv1 reads the latents as one 16-channel unit (zero-padded if fewer)
+    if latent == UNIT:
+        zp = z.contiguous()
+    else:
+        zp = torch.zeros((b, h, w, UNIT), dtype=torch.int8, device=z.device)
+        zp[..., :latent] = z
+    a = action_onehot.to(device=z.device, dtype=torch.float32).contiguous()
     act = torch.empty((4, b, h, w, hidden), dtype=torch.int8, device=z.device)
     out = torch.empty(shape_u, dtype=torch.int8, device=z.device)
-    order = ORDERS[packed["order"]]
-    kw, s, bias, rq = packed["kw"], packed["s"], packed["b"], packed["rq"]
+    # split orders: conv5/conv6 carry (main, skip) scale pairs
+    s = [x[0] if isinstance(x, tuple) else x for x in packed["s"]]
+    s_skip = [x[1].data_ptr() if isinstance(x, tuple) else None
+              for x in packed["s"][4:]]
+    plans = [tile_plan(h, w), tile_plan(h, w, SPLIT_TILE_M)]
     lib = _build.library()
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-
-    def conv(i, x0, x1, y, extra=None, conv_order=0, conv_head=REQUANT):
-        sc = s[i] if isinstance(s[i], tuple) else (s[i], None)
-        rc = lib.scm_int8_conv(
-            x0.data_ptr(), x0.shape[-1], ptr(x1), 0 if x1 is None else x1.shape[-1],
-            kw[i].data_ptr(), sc[0].data_ptr(), ptr(sc[1]), bias[i].data_ptr(),
-            ptr(extra), rq[i].data_ptr() if conv_head == REQUANT else None,
-            y.data_ptr(),
-            b, h, w, y.shape[-1], conv_order, conv_head, seed, stream)
-        _build.check(rc, f"int8_transition conv{i + 1}")
-
-    h1, h2, h3, h4 = act
-    conv(0, zp, None, h1, extra=abias)
-    conv(1, h1, None, h2)
-    conv(2, h2, None, h3)
-    conv(3, h3, None, h4)
-    conv(4, h4, h2, h3, conv_order=order)            # h5 into h3's buffer
-    conv(5, h3, h1, out, conv_order=order, conv_head=HEADS[head])
+    rc = lib.scm_int8_step(
+        zp.data_ptr(), a.data_ptr(), packed["w1a"].data_ptr(),
+        *(t.data_ptr() for t in packed["kw"]), *(t.data_ptr() for t in s),
+        *s_skip, *(t.data_ptr() for t in packed["b"]),
+        *(t.data_ptr() for t in packed["rq"]),
+        *(t.data_ptr() for t in act), out.data_ptr(),
+        b, h, w, hidden, num_actions, ORDERS[packed["order"]], HEADS[head],
+        *(p[k] for p in plans
+          for k in ("tw", "tws", "rows", "row_blocks", "col_blocks")),
+        seed, torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(rc, "int8_transition")
     int8_transition.launches += 1
     return out[..., :latent]
 

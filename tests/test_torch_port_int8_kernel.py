@@ -117,23 +117,33 @@ def test_split_orders_differ_only_in_rounding(small, same_sn):
 
 # -- packing -------------------------------------------------------------
 
-def _unpack(kw, c0, cin, cout):
-    """Invert pack_kernel_weights: (chunks, Cout, 16) -> (9, Cin, Cout)."""
-    m = kw.transpose(1, 2).reshape(-1, cout)
-    segs, row = [], 0
-    for c in ([c0, cin - c0] if c0 < cin else [cin]):
-        segs.append(m[row:row + 9 * c].reshape(9, c, cout))
-        row += -(-9 * c // ti.STAGE_ROWS) * ti.STAGE_ROWS
-    assert row == m.shape[0]
-    return torch.cat(segs, dim=1)
+def _unpack(kw, segments, cout):
+    """Invert pack_kernel_weights through k_plan: (tiles, Cout, 128) ->
+    (9, Cin, Cout), asserting that every padding slot is zero."""
+    slots = kw.reshape(-1, cout, ti.TILE_UNITS, ti.UNIT).transpose(1, 2) \
+        .reshape(-1, cout, ti.UNIT)
+    plan = ti.k_plan(segments)
+    assert slots.shape[0] == len(plan)
+    offsets = [sum(segments[:i]) for i in range(len(segments))]
+    w9 = kw.new_zeros((9, sum(segments), cout))
+    for slot, entry in zip(slots, plan):
+        if entry is None:
+            assert not slot.any()
+        else:
+            seg, tap, j = entry
+            c = offsets[seg] + j * ti.UNIT
+            w9[tap, c:c + ti.UNIT] = slot.T
+    return w9
 
 
 @pytest.mark.parametrize("bundle,hidden", [("minipacman_cf", 128),
                                            ("minipacman_student_h48", 48)])
 def test_packing_shapes_and_layout(bundle, hidden):
+    """Each packing's kernel weights: (tiles, Cout, 128) int8, one tile per
+    8 K slots of the K plan, and exactly the int8 weights they came from."""
     params = load_pytree(os.path.join(REPO, "pretrained_models", bundle,
                                       "model-transition.npz"), "cpu")
-    stages = lambda c: -(-9 * c // ti.STAGE_ROWS)  # noqa: E731
+    tiles = lambda c: -(-9 * c // (ti.UNIT * ti.TILE_UNITS))  # noqa: E731
     for packed, order in [(tq.quantize_transition(params).packed, "joint"),
                           (ti.pack_quantized_weights(params), "sum_first"),
                           (ti.pack_int8_weights(params), "bias_first")]:
@@ -142,16 +152,17 @@ def test_packing_shapes_and_layout(bundle, hidden):
                 packed["latent_pad"]) == (hidden, 16, 5, 16)
         kw = packed["kw"]
         assert [tuple(k.shape) for k in kw] == [
-            (stages(16) * 4, hidden, 16), (stages(hidden) * 4, hidden, 16),
-            (stages(hidden) * 4, hidden, 16), (stages(hidden) * 4, hidden, 16),
-            (2 * stages(hidden) * 4, hidden, 16), (2 * stages(hidden) * 4, 16, 16)]
+            (tiles(16), hidden, 128), (tiles(hidden), hidden, 128),
+            (tiles(hidden), hidden, 128), (tiles(hidden), hidden, 128),
+            (2 * tiles(hidden), hidden, 128), (2 * tiles(hidden), 16, 128)]
         assert all(k.dtype == torch.int8 and k.is_contiguous() for k in kw)
-        torch.testing.assert_close(_unpack(kw[0], 16, 16, hidden), packed["w"][0],
+        torch.testing.assert_close(_unpack(kw[0], (16,), hidden), packed["w"][0],
                                    rtol=0, atol=0)
         for i in range(1, 6):
             w = packed["w"][i]
-            torch.testing.assert_close(_unpack(kw[i], hidden, w.shape[1], w.shape[2]),
-                                       w, rtol=0, atol=0)
+            segments = (hidden,) if i < 4 else (hidden, hidden)
+            torch.testing.assert_close(_unpack(kw[i], segments, w.shape[2]), w,
+                                       rtol=0, atol=0)
         assert tuple(packed["w1a"].shape) == (5, hidden)
         assert packed["w1a"].dtype == torch.int32
         split = order != "joint"
@@ -159,6 +170,39 @@ def test_packing_shapes_and_layout(bundle, hidden):
             assert isinstance(packed["s"][i], tuple) == split
         assert all(tuple(r.shape) == (hidden,) for r in packed["rq"])
         assert tuple(packed["b"][5].shape) == (16,)
+
+
+@pytest.mark.parametrize("segments,steps", [
+    ((16,), [5]), ((48,), [14]), ((64,), [18]), ((80,), [23]), ((128,), [36]),
+    ((128, 128), [36, 36])], ids=["16", "48", "64", "80", "128", "2x128"])
+def test_k_plan(segments, steps):
+    """Every (segment, tap, unit) once, in tap order; ceil(9u / 2) k32 steps
+    a segment of u units, the rest of its last tile zero padding; no k32
+    step mixes two segments (the split orders keep their sums apart)."""
+    plan = ti.k_plan(segments)
+    assert len(plan) % ti.TILE_UNITS == 0
+    want = [(s, tap, j) for s, c in enumerate(segments)
+            for tap in range(9) for j in range(c // ti.UNIT)]
+    assert [e for e in plan if e is not None] == want
+    pairs = [plan[k:k + ti.STEP_UNITS] for k in range(0, len(plan), ti.STEP_UNITS)]
+    used = [p for p in pairs if any(e is not None for e in p)]
+    for p in used:
+        assert len({e[0] for e in p if e is not None}) == 1
+    assert [sum(1 for p in used if p[0][0] == s) for s in range(len(segments))] == steps
+    # a segment starts on a new tile: its first slot is at a tile boundary
+    for s in range(len(segments)):
+        first = next(k for k, e in enumerate(plan) if e is not None and e[0] == s)
+        assert first % ti.TILE_UNITS == 0
+    w9 = torch.randint(-127, 128, (9, sum(segments), 16), dtype=torch.int8)
+    kw = ti.pack_kernel_weights(w9, segments)
+    assert tuple(kw.shape) == (len(plan) // ti.TILE_UNITS, 16, 128)
+    torch.testing.assert_close(_unpack(kw, segments, 16), w9, rtol=0, atol=0)
+
+
+def test_k_plan_refuses_other_widths():
+    for c in (8, 144):
+        with pytest.raises(ValueError, match="segment"):
+            ti.k_plan((c,))
 
 
 def test_action_bias_equals_the_action_half_of_conv1(small):
@@ -212,8 +256,8 @@ def test_wrapper_refuses_other_devices_and_heads(small):
 @pytest.mark.parametrize("packing", ["joint", "sum_first", "bias_first"])
 @pytest.mark.parametrize("b,hw", [(4, 64), (3, 12)], ids=["full", "ragged"])
 def test_int8_kernel_matches_plain_on_card(card, packing, b, hw):
-    """Bit for bit; at 3 x 12 x 12 = 432 pixels the last 128-pixel block is
-    partial."""
+    """Bit for bit; at 12 x 12 a 256-pixel tile holds 144 pixels (21 rows
+    of 12, 12 of them in the image) and a 128-pixel split tile 120."""
     params = load_pytree(os.path.join(REPO, "pretrained_models",
                                       "minipacman_student_h48",
                                       "model-transition.npz"), card)

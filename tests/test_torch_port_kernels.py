@@ -197,16 +197,18 @@ def test_action_bias_equals_the_one_hot_half_of_conv1(name):
     np.testing.assert_allclose(split.numpy(), full.numpy(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("tile_m", [tft.TILE_M, 128])
 @pytest.mark.parametrize("hw", [(64, 64), (12, 12), (5, 33), (64, 1), (7, 65),
                                 (100, 130)])
-def test_tile_plan_covers_each_image_once(hw):
+def test_tile_plan_covers_each_image_once(hw, tile_m):
     """Every pixel of an image lies in exactly one tile; a tile stays inside
-    one image, holds at most TILE_M pixels, and its input rows fit the
-    kernel's chunk buffer."""
+    one image, holds at most tile_m pixels (the transition kernels' 256, the
+    int8 kernel's 128 for split orders at N >= 80), and its input rows fit
+    the kernel's chunk buffer."""
     h, w = hw
-    plan = tft.tile_plan(h, w)
+    plan = tft.tile_plan(h, w, tile_m)
     rows, tw, tws = plan["rows"], plan["tw"], plan["tws"]
-    assert rows * tw <= tft.TILE_M
+    assert rows * tw <= tile_m
     assert (rows + 2) * tws <= tft.A_SLOTS
     assert tws == (w if w <= 64 else 66) and tw == min(w, 64)
     seen = np.zeros((h, w), np.int32)

@@ -28,6 +28,11 @@ LATENT, ACTIONS = 16, 5
 # activation ranges come from an f32 free-run whose convs sum in another
 # order on each side
 SCALE_RTOL = 1e-5
+# below 100 the range is an order statistic from the bulk of the
+# activations, where that f32 noise (up to 3e-5 absolute at these sizes) is
+# a larger share of the value than at the max; on the same data the
+# percentile itself is bit-equal (test_percentile_matches_jnp_percentile)
+PERCENTILE_RTOL = 5e-5
 
 
 @pytest.fixture(scope="module", params=sorted(BUNDLES))
@@ -112,16 +117,33 @@ def test_quantize_transition_own_spectral_norm(params):
                                    np.asarray(want.scales[name]), rtol=1e-6)
 
 
+@pytest.mark.parametrize("percentile", [100.0, 99.9])
 @pytest.mark.parametrize("steps", [None, 3], ids=["one_step", "free_run"])
-def test_activation_scales_match_jax(params, steps):
+def test_activation_scales_match_jax(params, steps, percentile):
+    """The per-channel max, and below 100 the percentile."""
     z, a = _inputs(1, b=3, hw=32, steps=steps)
-    got = tq.activation_scales(params, torch.from_numpy(z), torch.from_numpy(a))
-    want = jq.activation_scales(_jax(params), jnp.asarray(z), jnp.asarray(a))
+    got = tq.activation_scales(params, torch.from_numpy(z), torch.from_numpy(a),
+                               percentile=percentile)
+    want = jq.activation_scales(_jax(params), jnp.asarray(z), jnp.asarray(a),
+                                percentile=percentile)
     assert sorted(got) == sorted(want) == ["conv1", "conv2", "conv3", "conv4",
                                            "conv5"]
     for name in want:
-        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
-                                   rtol=SCALE_RTOL, err_msg=name)
+        np.testing.assert_allclose(
+            got[name].numpy(), np.asarray(want[name]), err_msg=name,
+            rtol=SCALE_RTOL if percentile >= 100.0 else PERCENTILE_RTOL)
+
+
+@pytest.mark.parametrize("percentile", [99.9, 99.0, 95.0, 50.0])
+def test_percentile_matches_jnp_percentile(percentile):
+    """The reduction below 100 on its own, as ``activation_scales`` calls
+    it, against jnp.percentile on the same |activations|: bit for bit
+    (torch.quantile is up to 5e-6 relative away at 99)."""
+    rng = np.random.default_rng(7)
+    x = np.abs(rng.standard_normal((3 * 32 * 32, 128))).astype(np.float32)
+    got = tq.percentile_rows(torch.from_numpy(x), percentile)
+    want = jnp.percentile(jnp.asarray(x), percentile, axis=0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_calibrate_fold_matches_jax(params, same_sn, monkeypatch):
