@@ -37,11 +37,27 @@ Phases:
      the gate's MSE@t+10 with the teacher and exact student through the
      plain f32 transition and decoder on that batch (the record's engines
      run the bf16 kernels; JAX scores them in f32);
-  6. each kernel's time against its plain version, a library yardstick where
+  6. the third main path, training: ``trainer.train`` from a seeded
+     ``init_train_state`` at full width and the Config defaults (B = 32,
+     bf16 compute, lr 1e-4) for 24 iterations (horizon 3 -> 10, both CF
+     regularizers with 2-step roll-outs, firing at 5/10/15/20), each
+     iteration's ms and the peak device memory printed, every loss finite
+     and the per-step reconstruction loss lower over the last 4 iterations
+     than over the first 4; its evaluation hook (before the last step) runs
+     ``measure_prediction_mse`` at B = 100 x 30 through the bf16 transition
+     and decoder kernels on the trained weights, with launch counts read
+     around ``train`` and its first 10 steps held against the plain path;
+     then one f32 step (B = 2, horizon 4, TF32 off) on the card against the
+     same step on the CPU (same weights, batch and uniforms); one step each
+     with latent overshooting and latent TD at horizon 10, B = 32 (ms, peak
+     memory); a bit-equal ``save_model`` / ``load_model`` round trip; and
+     one horizon-10 step under torch.profiler (busy share, top kernels);
+  7. each kernel's time against its plain version, a library yardstick where
      PyTorch has one, and its bound, at the main paths' shapes (B = 100);
      beside each int8 row the int8 kernel in all three epilogue orders and
      the bf16 kernel at the same hidden width;
-  7. a ``kernels`` JSON line, the card line, and the result line.
+  8. a ``kernels`` JSON line (launches summed over the three main paths),
+     the card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
@@ -63,6 +79,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
+from scmgan_tpu_torch.config import Config
 from scmgan_tpu_torch.data.datasource import allocate_datasource
 from scmgan_tpu_torch.models.quantized import quantize_transition, transition_int8_v2
 from scmgan_tpu_torch.ops.kernels import _build
@@ -79,8 +96,16 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
     transition_plain,
     transition_probs,
 )
-from scmgan_tpu_torch.train.checkpoint import load_model, load_pytree
+from scmgan_tpu_torch.models.world_model import WorldModel
+from scmgan_tpu_torch.train import trainer
+from scmgan_tpu_torch.train.checkpoint import (
+    flatten_tree,
+    load_model,
+    load_pytree,
+    save_model,
+)
 from scmgan_tpu_torch.train.distill import calibrate_student, measure_fidelity
+from scmgan_tpu_torch.train.losses import LossNoise
 
 WATCHDOG_S = 300
 BUNDLE = "pretrained_models/minipacman_cf"
@@ -142,6 +167,21 @@ EPS_U = 1e-6
 # - int8 free-run: the same latents and the same decoder kernel on both
 #   sides, so the curves agree up to the host's float sums.
 INT8_CURVE_RTOL = 1e-6
+# - training, the f32 step on the card against the same step on the CPU
+#   (TF32 off): the convs sum in other orders, about 1e-6 relative per op,
+#   so the loss and metrics agree to 1e-4 relative; a sampled latent bit
+#   may flip where |u - p| is that small (about one of the step's 2.6e5
+#   draws), which moves a loss term by about 1e-5 and a network's gradient
+#   norm by about 1e-4, so those agree to 1e-3.  A fresh Adam's first step
+#   moves each parameter by lr * sign(g): the updated parameters agree to
+#   1e-6 wherever the two gradients have one sign, and no parameter is more
+#   than 2 lr + 1e-6 apart.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_NORM_RTOL = 1e-3
+TRAIN_PARAM_ATOL = 1e-6
+TRAIN_SIGN_FLIP_FRACTION = 1e-3
+TRAIN_ITERS = 24           # horizon_at walks 3 -> 10; CF fires at 5/10/15/20
+TRAIN_EVAL_TIMESTEPS = 30
 INT8_PACKINGS = {   # static quantization in each epilogue order
     "joint": lambda params: quantize_transition(params).packed,
     "sum_first": i8.pack_quantized_weights,
@@ -353,14 +393,14 @@ def library_decode(packed, z):
     return out.permute(0, 2, 3, 1)
 
 
-def profile_free_run(model, batch, num_actions, frames):
-    """One free-run under torch.profiler: device time by kernel, and the
-    card's busy share (kernels run on one stream, so their times add up)
-    of the run's wall time, which the profiler itself lengthens."""
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+def profile_device(fn):
+    """Run ``fn`` once under torch.profiler: (wall s, the card's busy s, device
+    time by kernel name in µs).  Kernels run on one stream, so their times
+    add up; the profiler itself lengthens the wall time."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _free_run_stats(model, batch, num_actions)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -370,10 +410,43 @@ def profile_free_run(model, batch, num_actions, frames):
     busy = sum(by_name.values()) * 1e-6
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
+    return wall, busy, by_name
+
+
+# Kernel families of a profile, by a substring of the kernel's name (first
+# match wins): the port's own kernels first, then the libraries'.
+KERNEL_FAMILIES = (("the port's kernels", ("scm_tr::", "scm_i8::", "decode_kernel")),
+                   ("conv (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn", "convolve")),
+                   ("concatenation copies", ("CatArrayBatchedCopy",)),
+                   ("reductions", ("reduce_kernel",)),
+                   ("GEMM", ("gemm", "cutlass")),
+                   ("elementwise", ("elementwise",)))
+
+
+def print_top_kernels(tag, by_name, busy, n=8):
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]:
+        say(f"[{tag}]   {us * 1e-3:9.2f} ms  {100 * us * 1e-6 / busy:5.1f}%  {name[:90]}")
+    families = {}
+    for name, us in by_name.items():
+        family = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)),
+                      "other")
+        families[family] = families.get(family, 0.0) + us
+    say(f"[{tag}] by family: " + ", ".join(
+        f"{f} {us * 1e-3:.2f} ms ({100 * us * 1e-6 / busy:.1f}%)"
+        for f, us in sorted(families.items(), key=lambda kv: -kv[1])))
+
+
+def profile_free_run(model, batch, num_actions, frames):
+    """One free-run under torch.profiler: device time by kernel, and the
+    card's busy share of the run's wall time."""
+    def run():
+        with torch.inference_mode():
+            _free_run_stats(model, batch, num_actions)
+
+    wall, busy, by_name = profile_device(run)
     say(f"[profile] free-run under the profiler: {wall:.3f} s wall, card busy "
         f"{busy:.3f} s ({100 * busy / wall:.1f}%), {frames / wall:.1f} frames/s")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say(f"[profile]   {us * 1e-3:9.2f} ms  {100 * us * 1e-6 / busy:5.1f}%  {name[:90]}")
+    print_top_kernels("profile", by_name, busy)
 
 
 def gate_in_f32(model, student, qt, batch, num_actions, latent, horizon=10):
@@ -400,6 +473,265 @@ def gate_in_f32(model, student, qt, batch, num_actions, latent, horizon=10):
     delta = lambda key: 100.0 * (out[key] - out["teacher"]) / out["teacher"]  # noqa: E731
     out["delta_pct"], out["int8_delta_pct"] = delta("student"), delta("int8")
     return out
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+class HostNoise(LossNoise):
+    """``LossNoise`` drawn on the host from a seeded generator and moved to
+    ``device``: the same numbers for a step on the card and on the CPU."""
+
+    def __init__(self, seed: int, device):
+        super().__init__(torch.Generator().manual_seed(seed))
+        self.device = torch.device(device)
+
+    def _uniform(self, shape, dtype):
+        return super()._uniform(shape, dtype).to(self.device)
+
+    def swap_indices(self, b, latent_dim):
+        return tuple(i.to(self.device) for i in super().swap_indices(b, latent_dim))
+
+    def permutation(self, b):
+        return super().permutation(b).to(self.device)
+
+
+def copy_params(params, device) -> WorldModel:
+    """Detached copies of every parameter on ``device`` (leaf tensors, so a
+    new optimizer can take them)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node.detach().to(device, copy=True)
+    return WorldModel(*(walk(net) for net in params))
+
+
+def flat_params(params) -> dict:
+    """Every parameter of a WorldModel by its ``network/a/b`` path."""
+    return dict(flatten_tree(params._asdict()))
+
+
+def grad_norms(state) -> dict:
+    """Each stepped network's gradient norm (after the value clip)."""
+    out = {}
+    for name, opt in state.optimizers.items():
+        grads = [p.grad.double() for p in opt.param_groups[0]["params"]
+                 if p.grad is not None]
+        if grads:
+            out[name] = float(torch.sqrt(sum((g * g).sum() for g in grads)))
+    return out
+
+
+def train_phase(ds, latent):
+    """The third main path: ``trainer.train`` at full width on the card, then
+    the checks of the training arithmetic.  Returns the kernels' launch
+    counts of the ``train`` run."""
+    num_actions = ds.binary_input_channels
+    bf16 = torch.bfloat16
+    cfg = Config(env=ENV, seed=SEED, train_iters=TRAIN_ITERS, iters_per_video=TRAIN_ITERS,
+                 enable_disentanglement_loss=True, enable_action_control_loss=True,
+                 counterfactual_horizon=2, eval_batch_size=BATCH,
+                 eval_timesteps=TRAIN_EVAL_TIMESTEPS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = trainer.init_train_state(cfg, ds.spec, gen)
+    n_params = sum(t.numel() for t in flat_params(state.params).values())
+    say(f"[train] minipacman_cf width: latent {cfg.latent_dim}, hidden {cfg.hidden_dim}, "
+        f"{ds.spec.height}x{ds.spec.width}x{ds.spec.channels} frames, {num_actions} actions, "
+        f"{ds.spec.num_rewards} rewards; {n_params} parameters; B = {cfg.batch_size}, "
+        f"{cfg.compute_dtype} compute, lr {cfg.learning_rate}, horizon "
+        f"{cfg.horizon_min}->{cfg.horizon_max} over {cfg.train_iters} iterations, CF "
+        f"every {cfg.cf_regularization_rate} (roll-out {cfg.counterfactual_horizon})")
+
+    # 1-2. train(), with the evaluation hook before the last step
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    rows, hook, clock = [], {}, {}
+
+    def eval_fn(st, it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hook["result"] = measure_prediction_mse(
+            st.params, ds, train_iter=it, batch_size=cfg.eval_batch_size,
+            timesteps=cfg.eval_timesteps, out_dir=out_dir, make_plots=False,
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+        torch.cuda.synchronize()
+        hook["s"] = time.perf_counter() - t0
+        hook["iter"] = it
+        hook["params"] = copy_params(st.params, "cuda")
+
+    def log_fn(it, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append({"iter": it, "horizon": trainer.horizon_at(cfg, it),
+                     "ms": 1e3 * (now - clock["t"]),
+                     **{k: float(v) for k, v in metrics.items()}})
+        clock["t"] = now
+
+    fused_transition.launches = 0
+    fused_decode.launches = 0
+    i8.int8_transition.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = clock["t"] = time.perf_counter()
+    state = trainer.train(cfg, ds, state, eval_fn=eval_fn, log_fn=log_fn, generator=gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"fused_transition": fused_transition.launches,
+                "fused_decode": fused_decode.launches,
+                "int8_transition": i8.int8_transition.launches}
+    peak = torch.cuda.max_memory_allocated()
+    rows[-1]["ms_without_eval"] = rows[-1]["ms"] - 1e3 * hook["s"]
+    for r in rows:
+        r["rec_per_step"] = r["reconstruction_loss"] / (r["horizon"] - 2)
+        say(f"[train] iter {r['iter']:2d} horizon {r['horizon']:2d}: {r['ms']:9.2f} ms"
+            + (f" ({r['ms_without_eval']:.2f} without the evaluation hook)"
+               if "ms_without_eval" in r else "")
+            + f"; loss {r['loss']:.6f}, reconstruction/step {r['rec_per_step']:.6f}, "
+            f"reward {r['reward_loss']:.6f}, cf_disentanglement "
+            f"{r['cf_disentanglement_loss']:.3e}, cf_control {r['cf_control_loss']:.3e}")
+    by_h = {}
+    for r in rows:
+        by_h.setdefault(r["horizon"], []).append(r.get("ms_without_eval", r["ms"]))
+    say("[train] mean ms per iteration by horizon (batch collection included; iteration "
+        "1 includes first-call set-up): " + ", ".join(
+            f"h{h} {np.mean(v):.2f} (n={len(v)})" for h, v in sorted(by_h.items())))
+    say(f"[train] train() {train_s:.3f} s wall for {len(rows)} iterations; peak device "
+        f"memory {peak / 2**30:.3f} GiB; evaluation hook at iteration {hook['iter']} "
+        f"{hook['s']:.3f} s; launches {launches}")
+    if launches != {"fused_transition": TRAIN_EVAL_TIMESTEPS - 1,
+                    "fused_decode": TRAIN_EVAL_TIMESTEPS - 2, "int8_transition": 0}:
+        raise AssertionError(f"the training path's evaluation did not run the kernels: "
+                             f"{launches}")
+    metric_keys = ("loss", "reward_loss", "reconstruction_loss", "cf_disentanglement_loss",
+                   "cf_control_loss")
+    if not np.isfinite([[r[k] for k in metric_keys] for r in rows]).all():
+        raise AssertionError("a training loss is not finite")
+    first = np.mean([r["rec_per_step"] for r in rows[:4]])
+    last = np.mean([r["rec_per_step"] for r in rows[-4:]])
+    say(f"[train] reconstruction loss per step: first 4 iterations {first:.6f}, last 4 "
+        f"{last:.6f} ({100 * (last - first) / first:+.1f}%)")
+    if not last < first:
+        raise AssertionError("the reconstruction loss did not fall")
+
+    # the evaluation hook's curve against the plain path on the same weights
+    result = hook["result"]
+    if result is None:
+        raise AssertionError("degenerate evaluation batch")
+    snap = hook["params"]
+    with torch.inference_mode():
+        batch = ds.collect(BATCH, TRAIN_EVAL_TIMESTEPS,
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+        short = tuple(x[:, :COMPARE_STEPS + 2] for x in batch)
+        pt = pack_transition_weights(snap.transition, latent, num_actions)
+        pd = pack_decoder_weights(snap.decoder, latent)
+        plain = _free_run_stats(
+            snap, short, num_actions,
+            transition_fn=lambda z, a: transition_plain(pt, z, a, dtype=bf16),
+            decode_fn=lambda z: decode_plain(pd, z, dtype=bf16))[0].cpu().numpy()
+    main_curve = np.asarray(result[0][:COMPARE_STEPS])
+    say(f"[train] evaluation pixel MSE, first {COMPARE_STEPS} steps: kernels "
+        f"{np.array2string(main_curve, precision=6)}")
+    say(f"[train]                                        plain   "
+        f"{np.array2string(plain, precision=6)}")
+    if not np.isfinite(np.asarray(result)).all():
+        raise AssertionError("non-finite evaluation curves")
+    if not np.allclose(main_curve, plain, rtol=CURVE_RTOL, atol=CURVE_ATOL):
+        raise AssertionError("the evaluation hook's curve disagrees with the plain path")
+    # A model this young may carry one constant latent in eval mode, which
+    # would hold the curves equal whatever the kernels did: check both
+    # kernels element by element on the trained weights, on random latents.
+    rng = np.random.default_rng(SEED + 4)
+    z, a = binary_latents(rng, BATCH), onehot_actions(rng, BATCH, num_actions)
+    check_transition(pt, z, a, latent, " (trained weights)")
+    check_decoder(pd, z, " (trained weights)")
+
+    # 3. one f32 step on the card against the same step on the CPU
+    cfg32 = cfg.replace(compute_dtype="float32", batch_size=2)
+    h32 = 4
+    batch = ds.collect(2, h32, generator=torch.Generator(device="cuda").manual_seed(SEED + 3))
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        params = copy_params(state.params, dev)
+        st = trainer.TrainState(params, trainer.make_optimizer(cfg32, params), 1)
+        t0 = time.perf_counter()
+        st, m = trainer.make_train_step(cfg32, h32)(
+            st, tuple(x.to(dev) for x in batch), HostNoise(SEED, dev), 0.5, 1.0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        sides[dev] = ({k: float(v) for k, v in m.items()}, grad_norms(st),
+                      {k: v.detach().cpu() for k, v in flat_params(st.params).items()},
+                      time.perf_counter() - t0)
+    (m_c, g_c, p_c, s_c), (m_h, g_h, p_h, s_h) = sides["cuda"], sides["cpu"]
+    diffs = {k: (p_c[k] - p_h[k]).abs() for k in p_c}
+    worst = max(float(d.max()) for d in diffs.values())
+    n_apart = sum(int((d > TRAIN_PARAM_ATOL).sum()) for d in diffs.values())
+    n_total = sum(d.numel() for d in diffs.values())
+    say(f"[train] f32 step B=2 horizon {h32} (TF32 off), card / CPU: " + ", ".join(
+        f"{k} {m_c[k]:.7g} / {m_h[k]:.7g}" for k in sorted(m_c)))
+    say("[train]   gradient norms card / CPU: " + ", ".join(
+        f"{k} {g_c[k]:.7g} / {g_h[k]:.7g}" for k in sorted(g_c))
+        + f"; parameters after Adam and the SN refresh: {n_apart} of {n_total} more than "
+        f"{TRAIN_PARAM_ATOL} apart, largest {worst:.3g} (limit 2 lr + {TRAIN_PARAM_ATOL}); "
+        f"step {1e3 * s_c:.1f} ms on the card, {1e3 * s_h:.1f} ms on the CPU")
+    for k in m_h:
+        if not np.isclose(m_c[k], m_h[k], rtol=TRAIN_LOSS_RTOL, atol=0):
+            raise AssertionError(f"f32 step: {k} differs between the card and the CPU")
+    for k in g_h:
+        if not np.isclose(g_c[k], g_h[k], rtol=TRAIN_GRAD_NORM_RTOL, atol=0):
+            raise AssertionError(f"f32 step: {k} gradient differs between card and CPU")
+    if (worst > 2 * cfg32.learning_rate + TRAIN_PARAM_ATOL
+            or n_apart > TRAIN_SIGN_FLIP_FRACTION * n_total):
+        raise AssertionError("f32 step: updated parameters differ between card and CPU")
+
+    # 4. overshooting and TD(lambda) at horizon 10, B = 32: the slot buffer
+    # advances as one S * B batch per step
+    extra = {}
+    for flag in ("latent_overshooting", "latent_td"):
+        c = cfg.replace(**{flag: True})
+        step = trainer.make_train_step(c, c.horizon_max)
+        batch = ds.collect(c.batch_size, c.horizon_max, generator=gen)
+        times = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, LossNoise(gen), 1.0, 0.0)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        extra[flag] = {"ms": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "lo_loss": float(m["lo_loss"]), "loss": float(m["loss"])}
+        say(f"[train] {flag} step, horizon {c.horizon_max}, B = {c.batch_size} (slot "
+            f"buffer {c.batch_size} x {c.horizon_max if flag == 'latent_overshooting' else c.td_steps + 2}): "
+            f"{times[0]:.2f} ms first, {times[1]:.2f} ms second; peak device memory "
+            f"{extra[flag]['peak_gib']:.3f} GiB; loss {m['loss']:.6f}, lo_loss "
+            f"{m['lo_loss']:.6f}")
+        if not np.isfinite([extra[flag]["loss"], extra[flag]["lo_loss"]]).all():
+            raise AssertionError(f"{flag}: loss not finite")
+
+    # 5. save / load round trip of the trained bundle
+    bundle = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
+    save_model(bundle, state.params)
+    back = flat_params(load_model(bundle, device="cuda"))
+    mine = flat_params(state.params)
+    if sorted(back) != sorted(mine) or not all(
+            back[k].dtype == v.dtype and torch.equal(back[k], v) for k, v in mine.items()):
+        raise AssertionError("save_model / load_model round trip is not bit-equal")
+    say(f"[train] save_model / load_model round trip: {len(mine)} arrays bit-equal")
+
+    # 6. one iteration's step at horizon 10 under the profiler
+    step = trainer.make_train_step(cfg, cfg.horizon_max)
+    batch = ds.collect(cfg.batch_size, cfg.horizon_max, generator=gen)
+    holder = {"state": step(state, batch, LossNoise(gen), 1.0, 1.0)[0]}
+
+    def one_step():
+        holder["state"] = step(holder["state"], batch, LossNoise(gen), 1.0, 1.0)[0]
+
+    wall, busy, by_name = profile_device(one_step)
+    say(f"[train] one step at horizon {cfg.horizon_max}, B = {cfg.batch_size}, CF on, "
+        f"under the profiler: {1e3 * wall:.2f} ms wall, card busy {1e3 * busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%), {len(by_name)} kernel names")
+    print_top_kernels("train", by_name, busy, n=12)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +956,11 @@ def main() -> int:
         f"exact student delta {gate_f32['delta_pct']:.4f}% (record "
         f"{fid['delta_pct'][10]:.4f}%)")
 
-    # 6. times at the main paths' shapes (B = 100): inputs as the free-run
+    # 6. the third main path: training at full width, its evaluation hook
+    # through the kernels, and the checks of the training arithmetic
+    train_launches = train_phase(ds, latent)
+
+    # 7. times at the main paths' shapes (B = 100): inputs as the free-run
     # hands them over (f32 latents, f32 one-hot actions).
     rng = np.random.default_rng(SEED + 1)
     z = binary_latents(rng, BATCH)
@@ -678,12 +1014,14 @@ def main() -> int:
             f"{k} {v:.4f}" for k, v in row.items() if k != "bf16_ms")
             + f"; bf16 kernel at hidden {width}: {row['bf16_ms']:.4f}")
 
-    # 7. the kernels line.  launches: the sum over the two main paths, each
+    # 8. the kernels line.  launches: the sum over the three main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
-        by_path = {"measure_prediction_mse": launches[extra.pop("counter")],
-                   "measure_fidelity": fid_launches[extra.pop("fid_counter")]}
+        counter = extra.pop("counter")
+        by_path = {"measure_prediction_mse": launches[counter],
+                   "measure_fidelity": fid_launches[extra.pop("fid_counter")],
+                   "train": train_launches[counter]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,

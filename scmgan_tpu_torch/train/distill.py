@@ -5,7 +5,9 @@ reference MSE protocol run on the same evaluation trajectories for the
 teacher, the exact student transition and, with ``include_int8``, the
 calibrated int8 student.  ``within_1pct`` is the serving gate: MSE@t+10 no
 more than 1% worse than the teacher, scored on the engine that serves.  The
-distillation and fine-tuning steps wait for the training slice.
+distillation and fine-tuning steps (``fake_quant_transition``,
+``make_distill_step``, ``make_gt_finetune_step``) wait for ROADMAP Queue 1.5;
+the train step they build on is ``train/trainer.py``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py`` on the CPU at a small size.
+
+    python3 scripts/rehearse_chip_smoke.py               # every phase
+    python3 scripts/rehearse_chip_smoke.py --train-only  # phase 6 alone
+    python3 scripts/rehearse_chip_smoke.py --train-only --hidden 128 --batch 8
+
+The script's control flow, shapes and checks run with every CUDA call
+mapped to the CPU: ``torch.Generator(device="cuda")`` and
+``Tensor.to("cuda")`` / ``.cuda()`` stay on the CPU, the kernel wrappers
+take their plain versions (counted here as launches, as the card's wrappers
+count them), the build, the kernels' shared-memory queries and ``ptxas``
+report are stubbed, ``cuda_ms`` returns 1.0 and the profiler, which sees no
+device on the CPU, is skipped.  Batches and the trained model are shrunk
+(``--batch``, ``--hidden``).  Every time it prints is a CPU time or a stub,
+never a card's.  It finds faults of control flow before a card is used;
+the numbers of the checks (losses, curves, round trips) are the CPU's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pathlib
+import sys
+import time
+import types
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+
+def _is_cuda(dev) -> bool:
+    return dev == "cuda" or (isinstance(dev, torch.device) and dev.type == "cuda")
+
+
+def map_cuda_to_cpu():
+    generator = torch.Generator
+
+    class CpuGenerator(generator):
+        def __new__(cls, device=None):
+            return generator(device="cpu")
+
+    to = torch.Tensor.to
+
+    def to_cpu(self, *args, **kw):
+        args = tuple("cpu" if _is_cuda(a) else a for a in args)
+        if _is_cuda(kw.get("device")):
+            kw["device"] = "cpu"
+        return to(self, *args, **kw)
+
+    torch.Generator = CpuGenerator
+    torch.Tensor.to = to_cpu
+    torch.Tensor.cuda = lambda self, *a, **k: self
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+
+
+def counting(fn, counter):
+    def wrapped(*args, **kw):
+        counter.launches += 1
+        return fn(*args, **kw)
+    return wrapped
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phase 6 (training) alone")
+    ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
+    ap.add_argument("--batch", type=int, default=4, help="training batch")
+    args = ap.parse_args()
+
+    map_cuda_to_cpu()
+    import chip_smoke as cs
+    from scmgan_tpu_torch.analysis import mse
+    from scmgan_tpu_torch.data import datasource
+    from scmgan_tpu_torch.models import quantized
+    from scmgan_tpu_torch.train import checkpoint
+
+    cpu = lambda device="cuda": torch.device("cpu")  # noqa: E731
+    datasource.resolve_device = cpu
+    checkpoint.resolve_device = cpu
+    mse.fused_transition = counting(mse.fused_transition, cs.fused_transition)
+    mse.fused_decode = counting(mse.fused_decode, cs.fused_decode)
+    quantized.int8_transition = counting(quantized.int8_transition, cs.i8.int8_transition)
+    cs.profile_device = lambda fn: (fn(), (1.0, 0.5, {"(no device on the CPU)": 1.0}))[1]
+    config = cs.Config
+    cs.Config = lambda **kw: config(**{**kw, "batch_size": args.batch,
+                                       "hidden_dim": args.hidden})
+    cs.BATCH, cs.CHECK_BATCHES, cs.EXTRA_BATCH = 4, (2, 4), 2
+    cs.TIMESTEPS = cs.FIDELITY_TIMESTEPS = cs.TRAIN_EVAL_TIMESTEPS = 14
+
+    t0 = time.perf_counter()
+    if args.train_only:
+        ds = datasource.allocate_datasource(cs.ENV, seed=cs.SEED, device="cpu")
+        print("launches", cs.train_phase(ds, 16))
+        rc = 0
+    else:
+        torch.cuda.is_available = lambda: True
+        torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
+        torch.cuda.device_count = lambda: 1
+        cs.card_line = lambda: "CPU rehearsal (no card)"
+        cs.cuda_ms = lambda fn, iters=20, warmup=3: (fn(), 1.0)[1]
+        cs._build.build = lambda: pathlib.Path("rehearsal-without-a-build.so")
+        cs._build.library = lambda: types.SimpleNamespace(
+            scm_transition_smem=lambda n: 0, scm_int8_smem=lambda n: 0,
+            scm_decode_smem=lambda: 0)
+        cs._build.ptxas_report = lambda: []
+        cs.faulthandler.dump_traceback_later = lambda *a, **k: None
+        rc = cs.main()
+    print(f"rehearsal rc {rc}, {time.perf_counter() - t0:.1f} s on the CPU")
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
