@@ -56,8 +56,27 @@ Phases:
      PyTorch has one, and its bound, at the main paths' shapes (B = 100);
      beside each int8 row the int8 kernel in all three epilogue orders and
      the bf16 kernel at the same hidden width;
-  8. a ``kernels`` JSON line (launches summed over the three main paths),
-     the card line, and the result line.
+  8. the fourth main path, MPC (agent/): (a) both transition kernels at
+     16x16 against their plain versions (gridworld_cf, B = 4, 64 and 640;
+     the bf16 kernel's both heads, the int8 kernel in the calibrated and
+     the static packing, bit for bit); (b) ``play_on_device`` on
+     gridworld_cf with the records' reference beam (lookahead 2, depth 12),
+     10 episodes x 300 steps, each score printed and the mean held at
+     >= 280 (record +291.7 +- 0.94; random +0.07 +- 8.0); (c) the bf16
+     kernel's launch count of that run equal to the loop's implied count;
+     (d) the true-dynamics oracle on the same episodes' protocol, beside its
+     record; (f) ms per plan on pong_cf_60k for the bf16 kernel, the int8
+     kernel (``calibrated_qt``) and the plain f32 route, the argmax
+     agreement of both kernels with the plain route over 50 states, and one
+     profiled plan (busy share, top kernels); (e) as many 300-step
+     pong_cf_60k episodes as fit in about 60 s, printed beside the record
+     (not held: the SE is too large at that n); (g) one
+     ``rollout_samples=4`` plan (the Bernoulli head) and one 50-step host
+     ``play`` episode on the int8 beam writing its score file; then both
+     kernels' per-call times at the MPC shapes (16x16 and 64x64; B = 4, 64,
+     640) beside plain, cuDNN and the bound;
+  9. a ``kernels`` JSON line (launches summed over the main paths), the
+     card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
@@ -68,6 +87,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -78,6 +98,15 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from scmgan_tpu_torch.agent.mpc import (
+    calibrated_qt,
+    make_planner,
+    plan_steps,
+    rollout_reward_table,
+)
+from scmgan_tpu_torch.agent.oracle import play_oracle_on_device
+from scmgan_tpu_torch.agent.play import play
+from scmgan_tpu_torch.agent.play_device import _episode_chunk, play_on_device
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
 from scmgan_tpu_torch.config import Config
 from scmgan_tpu_torch.data.datasource import allocate_datasource
@@ -96,7 +125,7 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
     transition_plain,
     transition_probs,
 )
-from scmgan_tpu_torch.models.world_model import WorldModel
+from scmgan_tpu_torch.models.world_model import WorldModel, encode
 from scmgan_tpu_torch.train import trainer
 from scmgan_tpu_torch.train.checkpoint import (
     flatten_tree,
@@ -198,6 +227,19 @@ INT8_ENTRIES = {
 
 def say(*args):
     print(*args, flush=True)
+
+
+def counters() -> dict:
+    """The kernel wrappers' launch counts."""
+    return {"fused_transition": fused_transition.launches,
+            "fused_decode": fused_decode.launches,
+            "int8_transition": i8.int8_transition.launches}
+
+
+def zero_counters():
+    fused_transition.launches = 0
+    fused_decode.launches = 0
+    i8.int8_transition.launches = 0
 
 
 def card_line() -> str:
@@ -567,18 +609,14 @@ def train_phase(ds, latent):
                      **{k: float(v) for k, v in metrics.items()}})
         clock["t"] = now
 
-    fused_transition.launches = 0
-    fused_decode.launches = 0
-    i8.int8_transition.launches = 0
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = clock["t"] = time.perf_counter()
     state = trainer.train(cfg, ds, state, eval_fn=eval_fn, log_fn=log_fn, generator=gen)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"fused_transition": fused_transition.launches,
-                "fused_decode": fused_decode.launches,
-                "int8_transition": i8.int8_transition.launches}
+    launches = counters()
     peak = torch.cuda.max_memory_allocated()
     rows[-1]["ms_without_eval"] = rows[-1]["ms"] - 1e3 * hook["s"]
     for r in rows:
@@ -735,6 +773,260 @@ def train_phase(ds, latent):
 
 
 # ---------------------------------------------------------------------------
+# MPC: the planner and the play loops through the transition kernels
+# ---------------------------------------------------------------------------
+
+MPC_GRID = "pretrained_models/gridworld_cf"
+MPC_PONG = "pretrained_models/pong_cf_60k"
+MPC_RECORDS = {"gridworld": "docs/mpc_sweep_gridworld.json",
+               "pong60k": "docs/mpc_sweep_pong60k.json",
+               "pong": "docs/mpc_sweep_pong.json"}
+MPC_LOOKAHEAD, MPC_DEPTH, MPC_STEPS = 2, 12, 300    # the records' reference beam
+MPC_GRID_EPISODES = 10
+MPC_GRID_FLOOR = 280.0       # the record: +291.7 +- 0.94 (n = 10); random +0.07 +- 8.0
+MPC_PONG_SECONDS = 60.0      # pong_cf_60k episodes: as many as fit in about this
+MPC_PONG_MAX_EPISODES = 20
+MPC_AGREEMENT_STATES = 50
+MPC_HOST_STEPS = 50
+# 16x16 kernel checks: a head stage (B = 4), one episode's beam (64) and the
+# beam of the gridworld episodes together (10 x 64).
+MPC_CHECK_BATCHES = (4, 64, MPC_GRID_EPISODES * 64)
+MPC_TIME_SHAPES = ((16, 4), (16, 64), (16, MPC_GRID_EPISODES * 64), (64, 4), (64, 64))
+
+
+def mean_se(xs):
+    xs = np.asarray(xs, np.float64)
+    se = xs.std(ddof=1) / np.sqrt(len(xs)) if len(xs) > 1 else float("nan")
+    return float(xs.mean()), float(se)
+
+
+def play_launches(chunks: int, max_steps: int, lookahead: int, depth: int) -> int:
+    """bf16 transition calls of ``play_on_device`` with the exact beam: per
+    chunk the first window step, then per env step the head's lookahead + 1
+    stages, the tail's depth - lookahead steps and the window step."""
+    return chunks * (1 + (max_steps - 1) * (lookahead + 1 + depth - lookahead + 1))
+
+
+def seed_latents(model, ds, n, seed):
+    """n latent states as play makes them: three frames of an episode
+    encoded, then one exact transition under the no-op."""
+    obs, _, _, _ = ds.collect(n, 3, generator=torch.Generator(device=ds.device).manual_seed(seed))
+    a = F.one_hot(torch.full((n,), 3 % ds.binary_input_channels, device=ds.device),
+                  ds.binary_input_channels).float()
+    pt = pack_transition_weights(model.transition, 16, ds.binary_input_channels)
+    with torch.inference_mode():
+        return fused_transition(pt, encode(model.encoder, obs), a)
+
+
+def mpc_kernel_checks(model, qt, rng):
+    """(a) both transition kernels at 16x16 against their plain versions."""
+    pt = pack_transition_weights(model.transition, 16, 4)
+    static = quantize_transition(model.transition).packed
+    checks, int8_checks = [], []
+    for b in MPC_CHECK_BATCHES:
+        z, a = binary_latents(rng, b, 16), onehot_actions(rng, b, 4)
+        checks.append(check_transition(pt, z, a, 16, " (gridworld_cf, 16x16)"))
+        int8_checks.append(check_int8("gridworld_cf calibrated", qt.packed,
+                                      z.to(torch.int8), a, "logit"))
+        int8_checks.append(check_int8("gridworld_cf static", static, z.to(torch.int8), a,
+                                      "logit"))
+    return checks, int8_checks
+
+
+def mpc_times(models, qts):
+    """Per-call ms of both transition kernels at the MPC shapes, beside the
+    plain versions, cuDNN's chain and the bound."""
+    rng = np.random.default_rng(SEED + 7)
+    rows = {}
+    with torch.inference_mode():
+        for hw, b in MPC_TIME_SHAPES:
+            model, qt = models[hw], qts[hw]
+            pt = pack_transition_weights(model.transition, 16, 4)
+            z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, 4)
+            zi = z.to(torch.int8)
+            key = f"{hw}x{hw} B={b}"
+            rows[key] = {
+                "ms": cuda_ms(lambda: fused_transition(pt, z, a)),
+                "plain_ms": cuda_ms(lambda: transition_plain(pt, z, a, dtype=torch.bfloat16),
+                                    iters=5),
+                "library_ms": cuda_ms(lambda: library_transition(pt, z, a)),
+                "bound": bound(*transition_cost(pt, z, a)),
+                "int8_ms": cuda_ms(lambda: i8.int8_transition(qt.packed, zi, a, head="logit")),
+                "int8_plain_ms": cuda_ms(lambda: i8.int8_transition_plain(
+                    qt.packed, zi, a, head="logit"), iters=3),
+                "int8_bound": bound(*int8_cost(qt.packed, z, a), peak=PEAK_INT8_OPS)}
+            r = rows[key]
+            say(f"[mpc-time] {key}: bf16 kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+                f"cuDNN {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} ({r['bound'][1]}); "
+                f"int8 kernel {r['int8_ms']:.4f} ms, plain {r['int8_plain_ms']:.4f}, bound "
+                f"{r['int8_bound'][0]:.4f} ({r['int8_bound'][1]})")
+    return rows
+
+
+def mpc_phase():
+    """The MPC path: the planner and play loops at full width (hidden 128)
+    through the transition kernels.  Returns the launch counts of its runs."""
+    with open(MPC_RECORDS["gridworld"]) as f:
+        grid_rec = json.load(f)["arms"]
+    with open(MPC_RECORDS["pong60k"]) as f:
+        pong_rec = json.load(f)["arms"]["ref"]
+    with open(MPC_RECORDS["pong"]) as f:
+        pong_random = json.load(f)["arms"]["random"]
+    grid = load_model(MPC_GRID, device="cuda")
+    pong = load_model(MPC_PONG, device="cuda")
+    grid_ds = allocate_datasource("gridworld", seed=SEED, device="cuda")
+    pong_ds = allocate_datasource("pong", seed=SEED, device="cuda")
+    z_grid = seed_latents(grid, grid_ds, 1, SEED + 20)
+    z_pong = seed_latents(pong, pong_ds, 1, SEED + 21)
+    qt_grid = calibrated_qt(grid, z_grid, 4)
+    qt_pong = calibrated_qt(pong, z_pong, 4)
+    beam = dict(lookahead=MPC_LOOKAHEAD, rollout_depth=MPC_DEPTH)
+    launches = {}
+    say(f"[mpc] gridworld_cf and pong_cf_60k: latent 16, hidden "
+        f"{grid.transition['conv2']['w'].shape[-1]} / {pong.transition['conv2']['w'].shape[-1]}, "
+        f"4 actions, 16x16 and 64x64 frames; beam 4^{MPC_LOOKAHEAD + 1} = "
+        f"{4 ** (MPC_LOOKAHEAD + 1)} plans x {MPC_DEPTH + 1} steps")
+
+    # (a) the kernels at 16x16
+    checks, int8_checks = mpc_kernel_checks(grid, qt_grid, np.random.default_rng(SEED + 5))
+
+    # (b, c) gridworld_cf, the reference beam, 10 episodes x 300 steps
+    chunk = _episode_chunk(grid_ds.spec, 128, 4, MPC_LOOKAHEAD, "noop", 1, grid_ds.device)
+    chunks = -(-MPC_GRID_EPISODES // (chunk or MPC_GRID_EPISODES))
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rewards, steps = play_on_device(grid, grid_ds, episodes=MPC_GRID_EPISODES,
+                                    max_steps=MPC_STEPS, seed0=SEED, verbose=False, **beam)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    launches["mpc_gridworld"] = counters()
+    implied = play_launches(chunks, MPC_STEPS, MPC_LOOKAHEAD, MPC_DEPTH)
+    mean, se = mean_se(rewards)
+    say(f"[mpc] gridworld_cf play_on_device, {MPC_GRID_EPISODES} episodes x {MPC_STEPS} "
+        f"steps (lookahead {MPC_LOOKAHEAD}, depth {MPC_DEPTH}, beam B = "
+        f"{MPC_GRID_EPISODES} x 64 in {chunks} chunk(s)): {grid_s:.3f} s wall, "
+        f"{1e3 * grid_s / (MPC_STEPS - 1):.3f} ms per env step of all episodes")
+    say(f"[mpc] gridworld_cf episode scores {rewards}, steps {sorted(set(steps))}")
+    say(f"[mpc] gridworld_cf mean {mean:+.2f} +- {se:.2f} (SE, n = {len(rewards)}); record "
+        f"(JAX package) {grid_rec['ref']['mean']:+.2f} +- {grid_rec['ref']['stderr']:.2f} "
+        f"(n = {grid_rec['ref']['n']}), random {grid_rec['random']['mean']:+.2f} +- "
+        f"{grid_rec['random']['stderr']:.2f}; limit >= {MPC_GRID_FLOOR}")
+    say(f"[mpc] launches {launches['mpc_gridworld']}; the loop implies {implied} bf16 "
+        f"transition calls")
+    if launches["mpc_gridworld"] != {"fused_transition": implied, "fused_decode": 0,
+                                     "int8_transition": 0}:
+        raise AssertionError("the MPC path did not run on the bf16 kernel alone")
+    if not mean >= MPC_GRID_FLOOR or steps != [MPC_STEPS + 1] * MPC_GRID_EPISODES:
+        raise AssertionError("gridworld MPC scores below the record's range")
+
+    # (d) the oracle on gridworld
+    t0 = time.perf_counter()
+    oracle, _ = play_oracle_on_device(grid_ds.spec, episodes=MPC_GRID_EPISODES,
+                                      max_steps=MPC_STEPS, seed0=SEED, verbose=False,
+                                      device=grid_ds.device, **beam)
+    o_mean, o_se = mean_se(oracle)
+    say(f"[mpc] gridworld oracle (true dynamics, same beam): {oracle}; mean {o_mean:+.2f} +- "
+        f"{o_se:.2f}; record {grid_rec['oracle_ref']['mean']:+.2f} +- "
+        f"{grid_rec['oracle_ref']['stderr']:.2f}; {time.perf_counter() - t0:.3f} s")
+    if not np.isfinite(oracle).all() or o_mean < mean - 5 * max(se, 1.0):
+        raise AssertionError("the oracle plans worse than the model")
+
+    # (f) ms per plan on pong_cf_60k: bf16 kernel, int8 kernel, plain f32
+    planners = {
+        "bf16 kernel": make_planner(pong, 4, **beam),
+        "int8 kernel (calibrated_qt)": make_planner(pong, 4, use_int8=True, qt=qt_pong, **beam),
+        "plain f32": make_planner(pong, 4, dtype=torch.float32, **beam)}
+    plan_ms = {name: cuda_ms(lambda p=p: p(z_pong), iters=3 if "plain" in name else 10)
+               for name, p in planners.items()}
+    say("[mpc] pong_cf_60k ms per plan (one state, beam 64 x 13 steps): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in plan_ms.items()))
+    zs = seed_latents(pong, pong_ds, MPC_AGREEMENT_STATES, SEED + 22)
+    steps_by = {k: plan_steps(pong, 4, dtype=torch.float32 if "plain" in k else torch.bfloat16,
+                              qt=qt_pong if "int8" in k else None) for k in planners}
+    scores = {}
+    for k, st in steps_by.items():
+        scores[k] = torch.cat([rollout_reward_table(
+            pong, zs[i:i + 10], 4, **beam, use_int8="int8" in k, steps=st)
+            for i in range(0, MPC_AGREEMENT_STATES, 10)]).cpu().numpy()
+    ref = scores["plain f32"]
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    for k in ("bf16 kernel", "int8 kernel (calibrated_qt)"):
+        agree = scores[k].argmax(1) == ref.argmax(1)
+        say(f"[mpc] argmax agreement, {k} vs plain f32 over {MPC_AGREEMENT_STATES} pong "
+            f"states: {int(agree.sum())}/{MPC_AGREEMENT_STATES}; where plain's top two are "
+            f"more than 0.1 apart: {int(agree[gap > 0.1].sum())}/{int((gap > 0.1).sum())}; "
+            f"max |score - plain| {np.abs(scores[k] - ref).max():.4g}")
+    if not all(np.isfinite(s).all() for s in scores.values()):
+        raise AssertionError("non-finite plan scores")
+    wall, busy, by_name = profile_device(lambda: planners["bf16 kernel"](z_pong))
+    say(f"[mpc] one bf16 plan under the profiler: {1e3 * wall:.3f} ms wall, card busy "
+        f"{1e3 * busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    print_top_kernels("mpc", by_name, busy)
+
+    # (e) pong_cf_60k episodes, as many as fit in about MPC_PONG_SECONDS
+    n_pong = int(max(1, min(MPC_PONG_MAX_EPISODES,
+                            MPC_PONG_SECONDS / (MPC_STEPS * plan_ms["bf16 kernel"] * 1e-3))))
+    chunk = _episode_chunk(pong_ds.spec, 128, 4, MPC_LOOKAHEAD, "noop", 1, pong_ds.device)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_rewards, p_steps = play_on_device(pong, pong_ds, episodes=n_pong, max_steps=MPC_STEPS,
+                                        seed0=SEED, verbose=False, **beam)
+    torch.cuda.synchronize()
+    pong_s = time.perf_counter() - t0
+    launches["mpc_pong"] = counters()
+    p_mean, p_se = mean_se(p_rewards)
+    say(f"[mpc] pong_cf_60k play_on_device, {n_pong} episodes x {MPC_STEPS} steps: "
+        f"{pong_s:.3f} s wall ({1e3 * pong_s / (MPC_STEPS - 1):.3f} ms per env step of all "
+        f"episodes); scores {p_rewards}; mean {p_mean:+.2f} +- {p_se:.2f} (SE, n = {n_pong}); "
+        f"record {pong_rec['mean']:+.2f} +- {pong_rec['stderr']:.2f} (n = {pong_rec['n']}), "
+        f"random (pong_cf record) {pong_random['mean']:+.2f} +- {pong_random['stderr']:.2f}; "
+        f"launches {launches['mpc_pong']}")
+    implied = play_launches(-(-n_pong // (chunk or n_pong)), MPC_STEPS, MPC_LOOKAHEAD,
+                            MPC_DEPTH)
+    if (launches["mpc_pong"]["fused_transition"] != implied
+            or not np.isfinite(p_rewards).all() or p_steps != [MPC_STEPS + 1] * n_pong):
+        raise AssertionError("the pong MPC run did not complete on the kernel")
+
+    # (g) one sampled plan (the Bernoulli head), one host episode on the int8 beam
+    sampler = make_planner(pong, 4, rollout_samples=4,
+                           generator=torch.Generator(device=pong_ds.device).manual_seed(SEED),
+                           **beam)
+    zero_counters()
+    action, s_scores = sampler(z_pong)
+    launches["mpc_sampled_plan"] = counters()
+    say(f"[mpc] rollout_samples=4 plan on pong_cf_60k: action {action}, scores "
+        f"{np.array2string(s_scores.cpu().numpy(), precision=4)}; launches "
+        f"{launches['mpc_sampled_plan']} (3 head stages exact, 10 tail steps sampled)")
+    if (launches["mpc_sampled_plan"]["fused_transition"] != MPC_DEPTH + 1
+            or not torch.isfinite(s_scores).all()):
+        raise AssertionError("the sampled plan did not run on the kernel")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_play_")
+    zero_counters()
+    t0 = time.perf_counter()
+    h_reward, h_t = play(grid, grid_ds, max_steps=MPC_HOST_STEPS, out_dir=out_dir,
+                         verbose=False, seed=SEED, use_int8=True, write_video=True, **beam)
+    host_s = time.perf_counter() - t0
+    launches["mpc_host_play_int8"] = counters()
+    written = sorted(os.listdir(out_dir))
+    say(f"[mpc] host play, gridworld_cf, int8 beam (calibrated_qt), {MPC_HOST_STEPS} steps: "
+        f"reward {h_reward}, t={h_t}, {host_s:.3f} s; launches "
+        f"{launches['mpc_host_play_int8']}; wrote {written}")
+    if (launches["mpc_host_play_int8"] != {
+            "fused_transition": MPC_HOST_STEPS, "fused_decode": 0,
+            "int8_transition": (MPC_HOST_STEPS - 1) * (MPC_DEPTH + 1)}
+            or not any(w.startswith("evaluation_metrics_") for w in written)):
+        raise AssertionError("the host play episode did not run on the kernels")
+
+    times = mpc_times({16: grid, 64: pong}, {16: qt_grid, 64: qt_pong})
+    return {"launches": launches, "checks": checks, "int8_checks": int8_checks,
+            "times": times, "plan_ms": plan_ms,
+            "scores": {"gridworld": rewards, "oracle": oracle, "pong60k": p_rewards}}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -831,9 +1123,7 @@ def main() -> int:
     int8_err = {k: float(any(n for n, _ in v)) for k, v in int8_checks.items()}
 
     # 4. the first main path: the teacher's free-run
-    fused_transition.launches = 0
-    fused_decode.launches = 0
-    i8.int8_transition.launches = 0
+    zero_counters()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -843,9 +1133,7 @@ def main() -> int:
         generator=torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_transition": fused_transition.launches,
-                "fused_decode": fused_decode.launches,
-                "int8_transition": i8.int8_transition.launches}
+    launches = counters()
     if result is None:
         raise AssertionError("degenerate trajectory batch")
     mse, mse_std, rew, rew_std = result
@@ -892,9 +1180,7 @@ def main() -> int:
     profile_free_run(model, batch, num_actions, frames)
 
     # 5. the second main path: the student fidelity gate
-    fused_transition.launches = 0
-    fused_decode.launches = 0
-    i8.int8_transition.launches = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fid = measure_fidelity(model, student, ds, tempfile.mkdtemp(prefix="chip_smoke_fid_"),
@@ -902,9 +1188,7 @@ def main() -> int:
                            seed=SEED)
     torch.cuda.synchronize()
     fid_wall = time.perf_counter() - t0
-    fid_launches = {"fused_transition": fused_transition.launches,
-                    "fused_decode": fused_decode.launches,
-                    "int8_transition": i8.int8_transition.launches}
+    fid_launches = counters()
     steps = FIDELITY_TIMESTEPS
     say(f"[fidelity] measure_fidelity B={BATCH} T={steps}: {fid_wall:.3f} s wall "
         f"(three free-runs, their rollouts and the calibration); launches "
@@ -1014,14 +1298,19 @@ def main() -> int:
             f"{k} {v:.4f}" for k, v in row.items() if k != "bf16_ms")
             + f"; bf16 kernel at hidden {width}: {row['bf16_ms']:.4f}")
 
-    # 8. the kernels line.  launches: the sum over the three main paths, each
+    # 8. the fourth main path: MPC planning and play (gridworld_cf, pong_cf_60k)
+    mpc = mpc_phase()
+    t_err = max([t_err] + [c["t_err"] for c in mpc["checks"]])
+
+    # 9. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
         counter = extra.pop("counter")
         by_path = {"measure_prediction_mse": launches[counter],
                    "measure_fidelity": fid_launches[extra.pop("fid_counter")],
-                   "train": train_launches[counter]}
+                   "train": train_launches[counter],
+                   **{path: n[counter] for path, n in mpc["launches"].items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
@@ -1041,7 +1330,10 @@ def main() -> int:
             counter="fused_transition", fid_counter="fused_transition",
             mismatch_fraction=t_mismatch,
             h48={"ms": h48["ms"], "plain_ms": h48["plain_ms"],
-                 "bound_ms": h48["bound"][0], "library_ms": h48["library_ms"]}),
+                 "bound_ms": h48["bound"][0], "library_ms": h48["library_ms"]},
+            mpc_shapes={k: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                            "library_ms": r["library_ms"], "bound_ms": r["bound"][0]}
+                        for k, r in mpc["times"].items()}),
         row("fused_decode", "fused_decode", "scmgan_tpu_torch/csrc/fused_decoder.cu",
             "scmgan_tpu/ops/pallas/fused_decoder.py:126", d_err,
             counter="fused_decode", fid_counter="fused_decode"),
@@ -1050,7 +1342,10 @@ def main() -> int:
               counter="int8_transition", fid_counter="int8_transition",
               mismatch_fraction=int8_mismatch[name],
               library_note="no PyTorch call computes an int8 convolution",
-              orders_ms=int8_orders[128], serving_h48=serving)
+              orders_ms=int8_orders[128], serving_h48=serving,
+              mpc_shapes_calibrated={k: {"ms": r["int8_ms"], "plain_ms": r["int8_plain_ms"],
+                                         "bound_ms": r["int8_bound"][0]}
+                                     for k, r in mpc["times"].items()})
           for name, (replaces, _) in INT8_ENTRIES.items()),
     ]
     say(f"[done] build {build_s:.2f} s, total {time.perf_counter() - t_start:.1f} s")

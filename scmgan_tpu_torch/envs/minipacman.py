@@ -109,7 +109,8 @@ def _tables(device: torch.device) -> _Tables:
         walls_px=t(walls_px, torch.float32))
 
 
-def reset(batch_size: int, device) -> State:
+def reset(batch_size: int, device, generator=None) -> State:
+    """The fixed start (the generator is not drawn from)."""
     tb = _tables(torch.device(device))
     full = lambda v: torch.full((batch_size,), v, dtype=torch.int64,  # noqa: E731
                                 device=tb.walls.device)

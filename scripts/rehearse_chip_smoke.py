@@ -4,6 +4,7 @@
     python3 scripts/rehearse_chip_smoke.py               # every phase
     python3 scripts/rehearse_chip_smoke.py --train-only  # phase 6 alone
     python3 scripts/rehearse_chip_smoke.py --train-only --hidden 128 --batch 8
+    python3 scripts/rehearse_chip_smoke.py --mpc-only    # phase 8 alone
 
 The script's control flow, shapes and checks run with every CUDA call
 mapped to the CPU: ``torch.Generator(device="cuda")`` and
@@ -12,7 +13,8 @@ take their plain versions (counted here as launches, as the card's wrappers
 count them), the build, the kernels' shared-memory queries and ``ptxas``
 report are stubbed, ``cuda_ms`` returns 1.0 and the profiler, which sees no
 device on the CPU, is skipped.  Batches and the trained model are shrunk
-(``--batch``, ``--hidden``).  Every time it prints is a CPU time or a stub,
+(``--batch``, ``--hidden``); the MPC phase plays 2 episodes of a few steps
+on a shallow beam, so its score floor is not held.  Every time it prints is a CPU time or a stub,
 never a card's.  It finds faults of control flow before a card is used;
 the numbers of the checks (losses, curves, round trips) are the CPU's.
 """
@@ -69,12 +71,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-only", action="store_true",
                     help="run phase 6 (training) alone")
+    ap.add_argument("--mpc-only", action="store_true",
+                    help="run phase 8 (MPC) alone")
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
 
     map_cuda_to_cpu()
     import chip_smoke as cs
+    from scmgan_tpu_torch.agent import mpc, oracle
     from scmgan_tpu_torch.analysis import mse
     from scmgan_tpu_torch.data import datasource
     from scmgan_tpu_torch.models import quantized
@@ -83,27 +88,36 @@ def main() -> int:
     cpu = lambda device="cuda": torch.device("cpu")  # noqa: E731
     datasource.resolve_device = cpu
     checkpoint.resolve_device = cpu
+    oracle.resolve_device = cpu
     mse.fused_transition = counting(mse.fused_transition, cs.fused_transition)
+    mpc.fused_transition = counting(mpc.fused_transition, cs.fused_transition)
     mse.fused_decode = counting(mse.fused_decode, cs.fused_decode)
     quantized.int8_transition = counting(quantized.int8_transition, cs.i8.int8_transition)
     cs.profile_device = lambda fn: (fn(), (1.0, 0.5, {"(no device on the CPU)": 1.0}))[1]
+    cs.cuda_ms = lambda fn, iters=20, warmup=3: (fn(), 1.0)[1]
     config = cs.Config
     cs.Config = lambda **kw: config(**{**kw, "batch_size": args.batch,
                                        "hidden_dim": args.hidden})
     cs.BATCH, cs.CHECK_BATCHES, cs.EXTRA_BATCH = 4, (2, 4), 2
     cs.TIMESTEPS = cs.FIDELITY_TIMESTEPS = cs.TRAIN_EVAL_TIMESTEPS = 14
+    cs.MPC_LOOKAHEAD, cs.MPC_DEPTH, cs.MPC_STEPS, cs.MPC_HOST_STEPS = 1, 2, 4, 4
+    cs.MPC_GRID_EPISODES, cs.MPC_PONG_MAX_EPISODES, cs.MPC_AGREEMENT_STATES = 2, 2, 3
+    cs.MPC_GRID_FLOOR = -float("inf")
+    cs.MPC_CHECK_BATCHES, cs.MPC_TIME_SHAPES = (2, 4), ((16, 2), (64, 2))
 
     t0 = time.perf_counter()
     if args.train_only:
         ds = datasource.allocate_datasource(cs.ENV, seed=cs.SEED, device="cpu")
         print("launches", cs.train_phase(ds, 16))
         rc = 0
+    elif args.mpc_only:
+        print("launches", cs.mpc_phase()["launches"])
+        rc = 0
     else:
         torch.cuda.is_available = lambda: True
         torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
         torch.cuda.device_count = lambda: 1
         cs.card_line = lambda: "CPU rehearsal (no card)"
-        cs.cuda_ms = lambda fn, iters=20, warmup=3: (fn(), 1.0)[1]
         cs._build.build = lambda: pathlib.Path("rehearsal-without-a-build.so")
         cs._build.library = lambda: types.SimpleNamespace(
             scm_transition_smem=lambda n: 0, scm_int8_smem=lambda n: 0,
