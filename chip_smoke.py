@@ -75,17 +75,37 @@ Phases:
      ``play`` episode on the int8 beam writing its score file; then both
      kernels' per-call times at the MPC shapes (16x16 and 64x64; B = 4, 64,
      640) beside plain, cuDNN and the bound;
-  9. a ``kernels`` JSON line (launches summed over the main paths), the
+  9. the fifth main path, the command line (``scmgan_tpu_torch.cli.main``
+     called in this process, the launch counters read around every run and
+     each run's wall seconds printed): (a) train minipacman at full width,
+     B = 32, 12 iterations with the evaluation (B = 100 x 30, videos) and
+     the checkpoint at iteration 10: every loss finite, every artifact on
+     disk, the launches the evaluation implies; (b) resume from that
+     directory, the loaded parameters, Adam moments and step bit-equal to
+     the saved state; (c) ``--evaluate`` on gridworld_cf: 3 playthroughs
+     (mean held at >= 280), the evaluation with its videos, the causal
+     graph and both Higgins variants, each printed beside its record, the
+     launches the runs imply; (d) ``--mpc-int8`` play on pong_cf_60k, the
+     int8 kernel's launches equal to the loop's count; (e) the h48 student
+     served through ``--student``; (f) a directory of the reference's
+     ``.pth`` files, its MSE curve beside the shipped one; then one
+     ``python -m scmgan_tpu_torch`` run in its own process, which must
+     exit 0 and write its checkpoint;
+  10. a ``kernels`` JSON line (launches summed over the main paths), the
      card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
-A watchdog ends a hang with a traceback and a non-zero exit.
+A watchdog ends a hang with a traceback and a non-zero exit (armed for
+phases 1-8, and again for phase 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
+import inspect
+import io
 import json
 import os
 import subprocess
@@ -107,7 +127,9 @@ from scmgan_tpu_torch.agent.mpc import (
 from scmgan_tpu_torch.agent.oracle import play_oracle_on_device
 from scmgan_tpu_torch.agent.play import play
 from scmgan_tpu_torch.agent.play_device import _episode_chunk, play_on_device
+from scmgan_tpu_torch.analysis import visualize
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
+from scmgan_tpu_torch.cli import main as cli
 from scmgan_tpu_torch.config import Config
 from scmgan_tpu_torch.data.datasource import allocate_datasource
 from scmgan_tpu_torch.models.quantized import quantize_transition, transition_int8_v2
@@ -126,6 +148,7 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
     transition_probs,
 )
 from scmgan_tpu_torch.models.world_model import WorldModel, encode
+from scmgan_tpu_torch.train import checkpoint as ckpt
 from scmgan_tpu_torch.train import trainer
 from scmgan_tpu_torch.train.checkpoint import (
     flatten_tree,
@@ -1027,6 +1050,366 @@ def mpc_phase():
 
 
 # ---------------------------------------------------------------------------
+# the command line: python -m scmgan_tpu_torch, driven in this process
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_TRAIN_ITERS, CLI_ITERS_PER_VIDEO = 12, 10
+CLI_GRID_EPISODES = 3
+HIGGINS_RECORD = "docs/higgins_zoo.json"
+REFERENCE_BUNDLE = "pretrained_models/reference_ab_gridworld"
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` inside the block: the
+    command line looks its callees up at call time, so a recorder sees
+    them."""
+    original = getattr(owner, name)
+    setattr(owner, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def cli_config(argv):
+    return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+
+def evaluate_launches(cfg, videos: bool) -> dict:
+    """Kernel calls of one ``evaluate``: the free-run (T - 1 transitions,
+    T - 2 decodes), and with videos the forward simulation (one transition
+    then one of each a step, T_sim - 3 steps) and one batched rollout a
+    reconstruction offset (1 + offset transitions, one decode)."""
+    t = cfg.eval_timesteps
+    n_t, n_d = t - 1, t - 2
+    if videos:
+        t_sim = inspect.signature(visualize.visualize_forward_simulation).parameters[
+            "timesteps"].default
+        offsets = inspect.signature(visualize.visualize_reconstruction).parameters[
+            "offsets"].default
+        n_t += 1 + (t_sim - 3) + sum(1 + o for o in offsets)
+        n_d += (t_sim - 3) + len(offsets)
+    return {"fused_transition": n_t, "fused_decode": n_d, "int8_transition": 0}
+
+
+def play_kernel_launches(cfg, episodes: int, int8: bool) -> dict:
+    """Kernel calls of ``episodes`` host ``play`` episodes that run to the
+    step limit: the window steps on the bf16 kernel, the beam on the bf16
+    or the int8 kernel."""
+    steps, look, depth = cfg.mpc_max_steps, cfg.mpc_lookahead, cfg.mpc_rollout_depth
+    if int8:
+        return {"fused_transition": episodes * steps, "fused_decode": 0,
+                "int8_transition": episodes * (steps - 1) * (depth + 1)}
+    return {"fused_transition": episodes * play_launches(1, steps, look, depth),
+            "fused_decode": 0, "int8_transition": 0}
+
+
+def add_launches(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def train_snapshot(state) -> dict:
+    """Host copies of a TrainState: parameters, each parameter's Adam
+    moments and step, and the state's step."""
+    adam = {}
+    for name, opt in state.optimizers.items():
+        for path, leaf in flatten_tree(getattr(state.params, name)):
+            st = opt.state.get(leaf)
+            if st:
+                adam[f"{name}/{path}"] = (st["exp_avg"].cpu().clone(),
+                                          st["exp_avg_sq"].cpu().clone(), float(st["step"]))
+    return {"params": {k: v.detach().cpu().clone() for k, v in flat_params(state.params).items()},
+            "adam": adam, "step": state.step}
+
+
+def run_cli(label, argv):
+    """``cli.main(argv)`` with the launch counters read around it and its
+    console output (a line per play step) kept aside, its tail printed on a
+    failure; returns (results, launches, wall seconds)."""
+    zero_counters()
+    torch.cuda.synchronize()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = cli.main(argv)
+    except BaseException:
+        say(out.getvalue()[-4000:])
+        raise
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    say(f"[cli] ({label}) python -m scmgan_tpu_torch {' '.join(argv)}: {wall:.3f} s wall; "
+        f"launches {launches}; {len(out.getvalue().splitlines())} lines of output")
+    return res, launches, wall
+
+
+def check_launches(label, got, want):
+    if got != want:
+        raise AssertionError(f"cli ({label}): launches {got}, the run implies {want}")
+
+
+def print_curve(label, curve, record_path):
+    with open(record_path) as f:
+        record = json.load(f)
+    n = min(10, len(curve), len(record))
+    say(f"[cli] ({label}) pixel MSE, first {n} steps: port   "
+        f"{np.array2string(np.asarray(curve[:n]), precision=5)}; mean over "
+        f"{len(curve)} steps {np.mean(curve):.6g}")
+    say(f"[cli] ({label})                       record "
+        f"{np.array2string(np.asarray(record[:n]), precision=5)}; mean over "
+        f"{len(record)} steps {np.mean(record):.6g} ({record_path})")
+
+
+def cli_kernel_checks():
+    """Each kernel against its plain version at every shape the command
+    line's runs give it: the evaluation's free-run at the eval batch, the
+    forward simulation at B = 1 and the reconstruction windows at
+    B = T - 3 - offset, on gridworld's 16x16 and minipacman's 64x64 frames
+    (teacher and h48 student); play's window step at B = 1 and its beam
+    stages at B = 4^k; the ``.pth`` bundle; the subprocess run's B = 8;
+    int8 play's beam on pong_cf_60k.  Returns (transition checks, decoder
+    max errors, int8 checks)."""
+    rng = np.random.default_rng(SEED + 9)
+    params = inspect.signature(visualize.visualize_reconstruction).parameters
+    t_viz, offsets = params["timesteps"].default, params["offsets"].default
+    viz = (1, *(t_viz - 3 - o for o in offsets))
+    cfg = cli_config(["--env", "gridworld"])
+    beam = tuple(4 ** k for k in range(1, cfg.mpc_lookahead + 2))
+    grid_b = sorted({*viz, *beam, 8, cfg.eval_batch_size})
+    pth_b = sorted({1, *beam, cfg.eval_batch_size})
+    grid, pth = load_model(MPC_GRID, device="cuda"), load_model(REFERENCE_BUNDLE, device="cuda")
+    pacman, pong = load_model(BUNDLE, device="cuda"), load_model(MPC_PONG, device="cuda")
+    h48 = load_pytree(f"{STUDENT}/model-transition.npz", "cuda")
+    pacman_a = pacman.transition["conv1"]["w"].shape[2] - 16
+    transitions = [   # (label, packing, actions, hw, batches)
+        ("gridworld_cf", pack_transition_weights(grid.transition, 16, 4), 4, 16, grid_b),
+        ("reference_ab_gridworld", pack_transition_weights(pth.transition, 16, 4), 4, 16,
+         pth_b),
+        ("minipacman_cf", pack_transition_weights(pacman.transition, 16, pacman_a),
+         pacman_a, 64, viz),
+        ("h48 student", pack_transition_weights(h48, 16, pacman_a), pacman_a, 64, viz),
+        ("pong_cf_60k", pack_transition_weights(pong.transition, 16, 4), 4, 64, (1,)),
+    ]
+    decoders = [   # (label, packing, hw, batches)
+        ("gridworld_cf", pack_decoder_weights(grid.decoder, 16), 16,
+         sorted({*viz, 8, cfg.eval_batch_size})),
+        ("reference_ab_gridworld", pack_decoder_weights(pth.decoder, 16), 16,
+         (cfg.eval_batch_size,)),
+        ("minipacman_cf", pack_decoder_weights(pacman.decoder, 16), 64, viz),
+    ]
+    checks, d_errs, int8_checks = [], [], []
+    for label, packed, acts, hw, batches in transitions:
+        for b in batches:
+            z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, acts)
+            checks.append(check_transition(packed, z, a, 16, f" ({label}, {hw}x{hw})"))
+    for label, packed, hw, batches in decoders:
+        for b in batches:
+            d_errs.append(check_decoder(packed, binary_latents(rng, b, hw),
+                                        f" ({label}, {hw}x{hw})"))
+    qt = quantize_transition(pong.transition).packed
+    for b in beam:
+        z, a = binary_latents(rng, b, 64), onehot_actions(rng, b, 4)
+        int8_checks.append(check_int8("pong_cf_60k static", qt, z.to(torch.int8), a,
+                                      "logit"))
+    return checks, d_errs, int8_checks
+
+
+def cli_phase():
+    """The command line on the card, in this process: train, resume, the
+    full evaluation, int8 play, the student, a ``.pth`` bundle; then one
+    ``python -m scmgan_tpu_torch`` subprocess.  Returns the kernels' launch
+    counts summed over the runs, each run's wall seconds and the kernel
+    checks at the runs' shapes."""
+    checks, d_errs, int8_checks = cli_kernel_checks()
+    totals, walls = [], {}
+    seed = ["--seed", str(SEED)]
+
+    # (a) train minipacman at the Config's full width, B = 32
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_train_")
+    argv = ["--env", ENV, "--train-iters", str(CLI_TRAIN_ITERS), "--iters-per-video",
+            str(CLI_ITERS_PER_VIDEO), "--eval-batch-size", str(BATCH),
+            "--eval-timesteps", str(TRAIN_EVAL_TIMESTEPS), *seed, "--out-dir", train_dir]
+    cfg = cli_config(argv)
+    metrics, saved = [], []
+
+    def recording_train(train):
+        def run(cfg, datasource, state, *, log_fn, **kw):
+            def log(i, m):
+                metrics.append((i, m))
+                log_fn(i, m)
+            return train(cfg, datasource, state, log_fn=log, **kw)
+        return run
+
+    def recording_save(save):
+        def run(ckpt_dir, state):
+            saved.append(train_snapshot(state))
+            return save(ckpt_dir, state)
+        return run
+
+    with patched(trainer, "train", recording_train), \
+            patched(ckpt, "save_train_state", recording_save):
+        res, launches, walls["train"] = run_cli("a: train", argv)
+    totals.append(launches)
+    losses = np.array([[float(v) for v in m.values()] for _, m in metrics])
+    say(f"[cli] (a) minipacman, hidden {cfg.hidden_dim}, B = {cfg.batch_size}: "
+        f"{len(metrics)} iterations, loss first {float(metrics[0][1]['loss']):.6f} last "
+        f"{float(metrics[-1][1]['loss']):.6f}; {len(saved)} checkpoint(s), step "
+        f"{[s['step'] for s in saved]}")
+    n_evals = sum(1 for i in range(cfg.start_iter, cfg.train_iters + 1)
+                  if i % cfg.iters_per_video == 0)
+    check_launches("a", launches, {k: n_evals * v for k, v in
+                                   evaluate_launches(cfg, videos=True).items()})
+    if len(metrics) != cfg.train_iters or not np.isfinite(losses).all():
+        raise AssertionError("cli (a): a training loss is not finite")
+    written = sorted(os.listdir(train_dir))
+    it = f"iter_{CLI_ITERS_PER_VIDEO:06d}"
+    wanted = [*ckpt.MODEL_FILES.values(), ckpt.OPT_FILE, ckpt.STEP_FILE,
+              *(f"mse_{k}_{it}.json" for k in ("pixel", "reward", "stddev_pixel",
+                                                "stddev_reward")),
+              f"simulation_ftr_{it}", f"prediction_01_{it}", f"prediction_03_{it}",
+              f"reward_prediction_01_{it}", f"reward_prediction_03_{it}"]
+    missing = [w for w in wanted if not any(f.startswith(w) for f in written)]
+    say(f"[cli] (a) wrote {written}")
+    if missing or len(saved) != n_evals:
+        raise AssertionError(f"cli (a): missing artifacts {missing}")
+
+    # (b) resume from that directory: what is loaded is what was saved
+    loaded = []
+
+    def recording_load(load):
+        def run(ckpt_dir, template):
+            state = load(ckpt_dir, template)
+            loaded.append(train_snapshot(state))
+            return state
+        return run
+
+    argv = ["--env", ENV, "--load-from", train_dir, "--start-iter",
+            str(CLI_TRAIN_ITERS - 1), "--train-iters", str(CLI_TRAIN_ITERS + 1), *seed,
+            "--iters-per-video", str(CLI_ITERS_PER_VIDEO),
+            "--out-dir", tempfile.mkdtemp(prefix="chip_smoke_cli_resume_")]
+    metrics.clear()
+    with patched(trainer, "train", recording_train), \
+            patched(ckpt, "load_train_state", recording_load):
+        res, launches, walls["resume"] = run_cli("b: resume", argv)
+    totals.append(launches)
+    want, got = saved[-1], loaded[0]
+    equal = (sorted(want["params"]) == sorted(got["params"])
+             and all(torch.equal(v, got["params"][k]) for k, v in want["params"].items()))
+    adam_equal = (sorted(want["adam"]) == sorted(got["adam"]) and all(
+        torch.equal(m, got["adam"][k][0]) and torch.equal(v, got["adam"][k][1])
+        and got["adam"][k][2] == s for k, (m, v, s) in want["adam"].items()))
+    say(f"[cli] (b) loaded {len(got['params'])} arrays, {len(got['adam'])} parameters' Adam "
+        f"moments and steps, step {got['step']} (saved {want['step']}): bit-equal "
+        f"{equal and adam_equal}; then {len(metrics)} iterations, final step "
+        f"{res['state'].step}")
+    if not (equal and adam_equal and got["step"] == want["step"]):
+        raise AssertionError("cli (b): the resumed state is not bit-equal to the saved one")
+    if (len(metrics) != 3 or res["state"].step != want["step"] + 3
+            or not np.isfinite([[float(v) for v in m.values()] for _, m in metrics]).all()):
+        raise AssertionError("cli (b): the resumed run did not train")
+    check_launches("b", launches, {k: 0 for k in launches})
+
+    # (c) the full evaluation on gridworld_cf
+    argv = ["--env", "gridworld", "--evaluate", "--load-from", MPC_GRID, "--evaluations",
+            str(CLI_GRID_EPISODES), "--causal-graph", "--higgins", *seed,
+            "--out-dir", tempfile.mkdtemp(prefix="chip_smoke_cli_eval_")]
+    cfg = cli_config(argv)
+    res, launches, walls["evaluate"] = run_cli("c: evaluate", argv)
+    totals.append(launches)
+    scores = [r for r, _ in res["scores"]]
+    mean, se = mean_se(scores)
+    say(f"[cli] (c) gridworld_cf play x{len(scores)}: scores {scores}, mean {mean:+.2f} "
+        f"+- {se:.2f} (floor {MPC_GRID_FLOOR}, record +291.7 +- 0.94)")
+    print_curve("c", res["evaluate"][0], f"{MPC_GRID}/mse_pixel_iter_020000.json")
+    with open(f"{MPC_GRID}/interpretability/causal_matrix_iter_020000.json") as f:
+        causal_rec = json.load(f)
+    w, w_rec = res["causal_graph"], np.asarray(causal_rec["max"])
+    say(f"[cli] (c) causal matrix (max, {cfg.latent_dim}x{cfg.latent_dim}): port mean "
+        f"{w.mean():.4f}, {int((w >= 0.5).sum())} edges >= 0.5; record mean "
+        f"{w_rec.mean():.4f}, {int((w_rec >= 0.5).sum())} edges >= 0.5 ({causal_rec['runs']} "
+        f"runs); rows port | record:")
+    for a, b in zip(w, w_rec):
+        say("[cli]   " + " ".join(f"{v:.1f}" for v in a) + " | "
+            + " ".join(f"{v:.1f}" for v in b))
+    with open(HIGGINS_RECORD) as f:
+        hig_rec = json.load(f)["gridworld_cf"]
+    say(f"[cli] (c) Higgins conv {res['higgins']['conv']:.4f} (record "
+        f"{hig_rec['higgins_conv_sum']}), spatial {res['higgins']['spatial']:.4f} (record "
+        f"{hig_rec['higgins_spatial']}); chance {hig_rec['chance']}")
+    check_launches("c", launches, add_launches(
+        play_kernel_launches(cfg, CLI_GRID_EPISODES, int8=False),
+        evaluate_launches(cfg, videos=True)))
+    if not (mean >= MPC_GRID_FLOOR and np.isfinite(res["evaluate"]).all()
+            and w.shape == (cfg.latent_dim,) * 2 and np.isfinite(w).all()
+            and all(0.0 <= v <= 1.0 for v in res["higgins"].values())):
+        raise AssertionError("cli (c): the evaluation failed its checks")
+
+    # (d) int8 play on pong_cf_60k
+    argv = ["--env", "pong", "--evaluate", "--load-from", MPC_PONG, "--mpc-int8",
+            "--evaluations", "1", "--no-videos", *seed,
+            "--out-dir", tempfile.mkdtemp(prefix="chip_smoke_cli_int8_")]
+    cfg = cli_config(argv)
+    res, launches, walls["int8_play"] = run_cli("d: int8 play", argv)
+    totals.append(launches)
+    say(f"[cli] (d) pong_cf_60k int8 play: score {res['scores']}")
+    check_launches("d", launches, add_launches(
+        play_kernel_launches(cfg, 1, int8=True), evaluate_launches(cfg, videos=False)))
+    if not np.isfinite(res["evaluate"]).all():
+        raise AssertionError("cli (d): non-finite evaluation")
+
+    # (e) the h48 student served inside minipacman_cf
+    argv = ["--env", ENV, "--evaluate", "--evaluations", "0", "--load-from", BUNDLE,
+            "--student", STUDENT, *seed,
+            "--out-dir", tempfile.mkdtemp(prefix="chip_smoke_cli_student_")]
+    cfg = cli_config(argv)
+    res, launches, walls["student"] = run_cli("e: student", argv)
+    totals.append(launches)
+    served = res["state"].params.transition["conv2"]["w"].shape[-1]
+    curve = res["evaluate"][0]
+    say(f"[cli] (e) served transition hidden {served}; pixel MSE at t+h: "
+        + ", ".join(f"h={h} {curve[h]:.6g}" for h in (3, 5, 10, 20) if h < len(curve)))
+    check_launches("e", launches, evaluate_launches(cfg, videos=True))
+    if served != 48 or not np.isfinite(res["evaluate"]).all():
+        raise AssertionError("cli (e): the h48 student did not serve")
+
+    # (f) a directory of the reference's .pth files
+    argv = ["--env", "gridworld", "--evaluate", "--evaluations", "1", "--load-from",
+            REFERENCE_BUNDLE, "--no-videos", *seed,
+            "--out-dir", tempfile.mkdtemp(prefix="chip_smoke_cli_pth_")]
+    cfg = cli_config(argv)
+    res, launches, walls["pth"] = run_cli("f: .pth bundle", argv)
+    totals.append(launches)
+    say(f"[cli] (f) reference_ab_gridworld play: score {res['scores']}")
+    print_curve("f", res["evaluate"][0], f"{REFERENCE_BUNDLE}/mse_pixel_iter_005000.json")
+    check_launches("f", launches, add_launches(
+        play_kernel_launches(cfg, 1, int8=False), evaluate_launches(cfg, videos=False)))
+    if not np.isfinite(res["evaluate"]).all():
+        raise AssertionError("cli (f): non-finite evaluation")
+
+    # one run in its own process, as a user starts it
+    out = tempfile.mkdtemp(prefix="chip_smoke_cli_module_")
+    argv = [sys.executable, "-m", "scmgan_tpu_torch", "--env", "gridworld", "--train-iters",
+            "2", "--iters-per-video", "2", "--batch-size", "8", "--eval-batch-size", "8",
+            "--eval-timesteps", "8", "--no-videos", *seed, "--out-dir", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True, timeout=300)
+    walls["subprocess"] = time.perf_counter() - t0
+    written = sorted(os.listdir(out))
+    say(f"[cli] subprocess {' '.join(argv[1:])}: exit {proc.returncode} in "
+        f"{walls['subprocess']:.3f} s; wrote {written}")
+    if proc.returncode != 0 or not {"model-encoder.npz", "opt_state.npz",
+                                    "mse_pixel_iter_000002.json"} <= set(written):
+        say(proc.stdout[-2000:])
+        say(proc.stderr[-2000:])
+        raise AssertionError("python -m scmgan_tpu_torch failed")
+    say("[cli] wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return {"launches": add_launches(*totals), "walls": walls, "checks": checks,
+            "d_errs": d_errs, "int8_checks": int8_checks}
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -1302,7 +1685,13 @@ def main() -> int:
     mpc = mpc_phase()
     t_err = max([t_err] + [c["t_err"] for c in mpc["checks"]])
 
-    # 9. the kernels line.  launches: the sum over the main paths, each
+    # 9. the fifth main path: the command line
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    cli_runs = cli_phase()
+    t_err = max([t_err] + [c["t_err"] for c in cli_runs["checks"]])
+    d_err = max([d_err] + cli_runs["d_errs"])
+
+    # 10. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
@@ -1310,7 +1699,8 @@ def main() -> int:
         by_path = {"measure_prediction_mse": launches[counter],
                    "measure_fidelity": fid_launches[extra.pop("fid_counter")],
                    "train": train_launches[counter],
-                   **{path: n[counter] for path, n in mpc["launches"].items()}}
+                   **{path: n[counter] for path, n in mpc["launches"].items()},
+                   "cli": cli_runs["launches"][counter]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,

@@ -39,6 +39,16 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
 from scmgan_tpu_torch.utils.timeseries import sparkline
 
 
+def serving_steps(model: WorldModel, num_actions: int):
+    """(transition_fn, decode_fn) on weights packed once: ``(z, a) -> z``
+    in eval mode and ``z -> logits``, the two kernels (on the CPU their
+    plain versions, in the packed weights' dtype)."""
+    latent = model.transition["conv6"]["w"].shape[-1]
+    pt = pack_transition_weights(model.transition, latent, num_actions)
+    pd = pack_decoder_weights(model.decoder, latent)
+    return (lambda z, a: fused_transition(pt, z, a)), (lambda z: fused_decode(pd, z))
+
+
 @torch.inference_mode()
 def _free_run_stats(model: WorldModel, batch, num_actions: int,
                     transition_fn=None, decode_fn=None):
@@ -54,17 +64,13 @@ def _free_run_stats(model: WorldModel, batch, num_actions: int,
     obs, rewards, dones, actions = batch
     b, t_total = obs.shape[0], obs.shape[1]
     f32 = torch.float32
-    latent_dim = model.encoder["conv4"]["w"].shape[-1]
     actions_oh = torch.nn.functional.one_hot(
         actions.long(), num_actions).to(obs.dtype)
 
-    if transition_fn is None:
-        packed_t = pack_transition_weights(model.transition, latent_dim,
-                                           num_actions)
-        transition_fn = lambda z, a: fused_transition(packed_t, z, a)  # noqa: E731
-    if decode_fn is None:
-        packed_d = pack_decoder_weights(model.decoder, latent_dim)
-        decode_fn = lambda z: fused_decode(packed_d, z)  # noqa: E731
+    if transition_fn is None or decode_fn is None:
+        kernel_transition, kernel_decode = serving_steps(model, num_actions)
+        transition_fn = transition_fn or kernel_transition
+        decode_fn = decode_fn or kernel_decode
 
     def masked_stats(diffs, active):
         # reference main.py:816-818: mean/std over the masked vector, then
@@ -168,7 +174,8 @@ def plot_error_graph(losses, stddevs, experiment_name: str, train_iter: int,
                      edgecolor: str = "#00FF00", out_dir: str = ".",
                      make_plot: bool = True):
     """JSON (+ PNG) artifacts in the reference's exact naming scheme
-    (main.py:858-882).  matplotlib is imported only for the PNG."""
+    (main.py:858-882).  matplotlib is imported only for the PNG, which is
+    left out where it does not import."""
     mse_filename = os.path.join(
         out_dir, f"mse_{experiment_name}_iter_{train_iter:06d}.json")
     with open(mse_filename, "w") as fp:
@@ -180,7 +187,10 @@ def plot_error_graph(losses, stddevs, experiment_name: str, train_iter: int,
 
     if not make_plot:
         return
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        return
 
     matplotlib.use("Agg")
     from matplotlib import pyplot as plt

@@ -8,6 +8,7 @@ batched over a leading B axis of tensors on the device:
     draw_noise(batch_size, generator)    -> the step's randomness
     step(state, actions, noise)          -> (state, rewards (B, R), dones (B,))
     render(state)                        -> obs (B, H, W, C) float32
+    simulator(factors)                   -> frames for the Higgins metric
 
 The step's randomness is an explicit argument, so a test can inject the
 numbers that the JAX package's keys produce; a random start (gridworld,
@@ -40,6 +41,10 @@ class EnvSpec:
     draw_noise: Callable[[int, torch.Generator], Any]
     step: Callable[[Any, torch.Tensor, Any], tuple]
     render: Callable[[Any], torch.Tensor]
+    true_latent_dim: Optional[int] = None
+    # factors (B, true_latent_dim) in [0, 1] -> frames (numpy) for the
+    # Higgins metric (reference envs/betterpong.py:140-172)
+    simulator: Optional[Callable[[np.ndarray], np.ndarray]] = None
 
     @property
     def obs_shape(self):

@@ -8,14 +8,15 @@ start velocities drawn from ``_VELOCITIES``, paddle, wall and score
 reflections.  A step draws nothing.  The dynamics take any integer
 velocity, as the reference's Higgins simulator needs: it seeds both
 velocities from the left paddle's factor (envs/betterpong.py:164-165, the
-velocity-seeding quirk), so they may be 0 or as large as the court.  The
-simulator itself waits.
+velocity-seeding quirk), so they may be 0 or as large as the court.  ``simulator``
+renders the Higgins metric's frames.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from scmgan_tpu_torch.envs.base import EnvSpec, register
@@ -124,6 +125,45 @@ def render(state: State) -> torch.Tensor:
     return frame
 
 
+def _rescale(z: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    # reference envs/betterpong.py:175-176, in f32 as the JAX package rounds
+    return (z * (hi - lo) + lo + 0.5).to(torch.int64)
+
+
+def simulator(factor_batch, actions: Optional[torch.Tensor] = None) -> np.ndarray:
+    """Factors (B, 6) in [0, 1] -> three stacked frames a sample (B, 3, H, W,
+    C), for the Higgins metric (scmgan_tpu/envs/betterpong.py:132; reference
+    envs/betterpong.py:140-172): the state is set from the factors, then
+    rendered and stepped three times under random actions.  Both ball
+    velocities are seeded from the left paddle's factor, the reference's
+    quirk (envs/betterpong.py:164-165).
+
+    ``actions`` (B, 3): the actions of the three steps (the last one moves
+    nothing that is rendered).  By default they are drawn from a generator
+    seeded with 0, so that a batch of factors renders the same frames on
+    every call, as the JAX package's fixed key does; a test passes the JAX
+    package's actions.  Runs on the CPU."""
+    z = torch.as_tensor(np.asarray(factor_batch, np.float32))
+    b = z.shape[0]
+    if actions is None:
+        actions = torch.randint(0, NUM_ACTIONS, (b, 3),
+                                generator=torch.Generator().manual_seed(0))
+    actions = torch.as_tensor(actions, dtype=torch.int64)
+    state = State(
+        left_y=_rescale(z[:, 0], 0, GAME_SIZE),
+        right_y=_rescale(z[:, 1], 0, GAME_SIZE),
+        ball_x=_rescale(z[:, 2], MARGIN_X, GAME_SIZE - MARGIN_X),
+        ball_y=_rescale(z[:, 3], MARGIN_Y, GAME_SIZE - MARGIN_Y),
+        vel_x=_rescale(z[:, 0], 0, GAME_SIZE),
+        vel_y=_rescale(z[:, 0], 0, GAME_SIZE),
+    )
+    frames = []
+    for t in range(3):
+        frames.append(render(state))
+        state, _, _ = step(state, actions[:, t])
+    return torch.stack(frames, dim=1).numpy()
+
+
 @register("pong")
 @register("betterpong")
 def make_spec() -> EnvSpec:
@@ -138,4 +178,6 @@ def make_spec() -> EnvSpec:
         draw_noise=draw_noise,
         step=step,
         render=render,
+        true_latent_dim=TRUE_LATENT_DIM,
+        simulator=simulator,
     )

@@ -4,13 +4,15 @@
 Port of ``scmgan_tpu/envs/gridworld.py`` (``reset``, ``step``, ``render``),
 reference envs/gridworld.py:17-97: +-1 reward when the ball reaches the
 right/left wall, no terminal state, no randomness in a step.  The start is
-drawn from a generator.  The Higgins ``simulator`` waits.
+drawn from a generator.  ``simulator`` renders the Higgins metric's
+two-factor frames (the ball's x and y).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from scmgan_tpu_torch.envs.base import EnvSpec, register
@@ -67,6 +69,20 @@ def render(state: State) -> torch.Tensor:
     return frame
 
 
+TRUE_LATENT_DIM = 2  # ball_x, ball_y
+
+
+def simulator(factor_batch) -> np.ndarray:
+    """Factors (B, 2) in [0, 1] -> rendered frames (B, H, W, C), for the
+    Higgins metric (scmgan_tpu/envs/gridworld.py:64): the ball's x and y
+    over the court between the margins, rounded as the JAX package rounds
+    them (f32 arithmetic, then truncation).  Runs on the CPU."""
+    z = torch.as_tensor(np.asarray(factor_batch, np.float32))
+    x = (z[:, 0] * (GAME_SIZE - 2 * MARGIN_X) + MARGIN_X + 0.5).to(torch.int64)
+    y = (z[:, 1] * (GAME_SIZE - 2 * MARGIN_Y) + MARGIN_Y + 0.5).to(torch.int64)
+    return render(State(ball_x=x, ball_y=y)).numpy()
+
+
 @register("gridworld")
 def make_spec() -> EnvSpec:
     return EnvSpec(
@@ -80,4 +96,6 @@ def make_spec() -> EnvSpec:
         draw_noise=draw_noise,
         step=step,
         render=render,
+        true_latent_dim=TRUE_LATENT_DIM,
+        simulator=simulator,
     )

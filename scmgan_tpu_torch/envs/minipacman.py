@@ -7,7 +7,7 @@ RIGHT, UP, LEFT, DOWN}, 2 reward channels (positive, negative), rewards
 death.  The ghosts' randomness is the explicit ``Noise`` of each step: per
 ghost a 5-way uniform on [0, 0.1) that breaks greedy ties, a 5-way uniform
 that picks the random move, and one uniform that decides whether to explore.
-The Higgins ``simulator`` waits.
+``simulator`` renders the Higgins metric's five-factor frames.
 """
 
 from __future__ import annotations
@@ -238,6 +238,56 @@ def render(state: State) -> torch.Tensor:
     return torch.stack([red, green, blue], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# Higgins ground-truth factor simulator (scmgan_tpu/envs/minipacman.py:221-
+# 290): 0 pac_row, 1 pac_col, 2 ghost_row, 3 ghost_col (one varied ghost; the
+# other two stay at their spawn cells), 4 powered (pill state, threshold
+# 0.5).  The row factor picks among the rows holding corridor cells, the
+# column factor among THAT row's corridor columns: the column factor is
+# row-conditional, so a pair sharing it renders different pixel columns when
+# the rows differ.  That is the JAX package's documented quirk and is kept.
+# ---------------------------------------------------------------------------
+
+TRUE_LATENT_DIM = 5
+
+_FREE = ~_WALLS
+_FREE_ROWS = np.asarray([r for r in range(N) if _FREE[r].any()], np.int64)
+_MAXC = int(max(_FREE[r].sum() for r in _FREE_ROWS))
+_FREE_COLS = np.zeros((N, _MAXC), np.int64)
+_NCOLS = np.zeros((N,), np.int64)
+for _r in _FREE_ROWS:
+    _cols = np.flatnonzero(_FREE[_r])
+    _NCOLS[_r] = len(_cols)
+    _FREE_COLS[_r, :len(_cols)] = _cols
+    _FREE_COLS[_r, len(_cols):] = _cols[-1]
+
+
+def _cell_from_factors(fr: torch.Tensor, fc: torch.Tensor):
+    """Row and column factors (B,) f32 -> a corridor cell (B,), (B,)."""
+    rows, cols, ncols = (torch.from_numpy(a) for a in (_FREE_ROWS, _FREE_COLS, _NCOLS))
+    r = rows[torch.clamp((fr * len(_FREE_ROWS)).to(torch.int64), 0, len(_FREE_ROWS) - 1)]
+    n = ncols[r]
+    c = cols[r, torch.minimum(torch.clamp((fc * n).to(torch.int64), min=0), n - 1)]
+    return r, c
+
+
+def simulator(factor_batch) -> np.ndarray:
+    """Factors (B, 5) in [0, 1] -> rendered 64x64 frames (B, H, W, C), for
+    the Higgins metric (scmgan_tpu/envs/minipacman.py:269).  Runs on the
+    CPU."""
+    z = torch.as_tensor(np.asarray(factor_batch, np.float32))
+    b = z.shape[0]
+    tb = _tables(torch.device("cpu"))
+    pr, pc = _cell_from_factors(z[:, 0], z[:, 1])
+    gr0, gc0 = _cell_from_factors(z[:, 2], z[:, 3])
+    gr = torch.stack([gr0, tb.start_r[1].expand(b), tb.start_r[2].expand(b)], dim=1)
+    gc = torch.stack([gc0, tb.start_c[1].expand(b), tb.start_c[2].expand(b)], dim=1)
+    power = torch.where(z[:, 4] > 0.5, POWER_STEPS, 0).to(torch.int64)
+    state = State(pr, pc, gr, gc, tb.food0.expand(b, N, N), tb.pills0.expand(b, N, N),
+                  power, torch.ones(b, dtype=torch.bool))
+    return render(state).numpy()
+
+
 @register("minipacman")
 def make_spec() -> EnvSpec:
     return EnvSpec(
@@ -251,4 +301,6 @@ def make_spec() -> EnvSpec:
         draw_noise=draw_noise,
         step=step,
         render=render,
+        true_latent_dim=TRUE_LATENT_DIM,
+        simulator=simulator,
     )

@@ -7,8 +7,8 @@ same nested parameter dicts (``{"conv1": {"w": HWIO, "b": (C,), "sn":
 an explicit ``torch.Generator`` on the target device, with the JAX package's
 tree paths, shapes and dtypes), the forwards, and the train path of
 ``transition`` (straight-through Bernoulli head, or the deterministic
-sigmoid).  ``decode(visualize=True)``'s per-factor layers and
-``predict_reward``'s spatial map wait for the analysis slice.
+sigmoid), and the visualize forms of ``decode`` (the first sample's
+per-factor layers) and ``predict_reward`` (the signed spatial map).
 """
 
 from __future__ import annotations
@@ -143,19 +143,24 @@ def init_decoder(generator, latent_dim: int, color_channels: int,
     }
 
 
-def decode(params: dict, z: torch.Tensor) -> torch.Tensor:
+def decode(params: dict, z: torch.Tensor, visualize: bool = False):
     """z: (B, H, W, latent) -> pixel logits (B, H, W, color).
 
     Per-factor additive decoding: conv to latent*color channels, reshape to
     (..., latent, color), sum over the latent axis (reference
-    models.py:279-287).
+    models.py:279-287).  ``visualize`` also returns the first sample's
+    per-factor layers (latent, H, W, color) (models.py:284-290).
     """
     latent_dim = z.shape[-1]
     color = params["conv2"]["w"].shape[-1] // latent_dim
     x = leaky_relu(conv_transpose2d(params["conv1"], z))
     x = conv_transpose2d(params["conv2"], x)
     b, h, w, _ = x.shape
-    return x.reshape(b, h, w, latent_dim, color).sum(dim=3)
+    x = x.reshape(b, h, w, latent_dim, color)
+    out = x.sum(dim=3)
+    if visualize:
+        return out, x[0].permute(2, 0, 1, 3)
+    return out
 
 
 def decode_fused(params: dict, z: torch.Tensor) -> torch.Tensor:
@@ -179,12 +184,13 @@ def init_reward_predictor(generator, latent_dim: int, num_rewards: int,
     }
 
 
-def predict_reward(params: dict, z: torch.Tensor) -> torch.Tensor:
+def predict_reward(params: dict, z: torch.Tensor, visualize: bool = False):
     """z: (B, H, W, latent) -> reward vector (B, num_rewards).
 
     Each pixel is classified 3 ways (+1 / 0 / -1) per reward channel and the
     signed map p[+1] - p[-1] is summed over pixels (reference
     models.py:235-250).  conv1 is VALID, conv2 VALID with stride 2.
+    ``visualize`` also returns the signed map (B, h, w, num_rewards).
     """
     num_rewards = params["conv2"]["w"].shape[-1] // 3
     x = leaky_relu(conv2d(params["conv1"], z, padding="VALID"))
@@ -193,7 +199,10 @@ def predict_reward(params: dict, z: torch.Tensor) -> torch.Tensor:
     # the channel axis splits 3-major: (3, num_rewards), reference models.py:243
     x = torch.softmax(x.reshape(b, h, w, 3, num_rewards), dim=3)
     signed = x[:, :, :, 0, :] - x[:, :, :, 2, :]
-    return signed.sum(dim=(1, 2))
+    total = signed.sum(dim=(1, 2))
+    if visualize:
+        return total, signed
+    return total
 
 
 def init_discriminator(generator, img_size=64, dtype=torch.float32) -> dict:

@@ -14,7 +14,10 @@ Port of ``scmgan_tpu/train/trainer.py``, reproducing the reference
     (main.py:133-141)
 
 The spectral-norm power iteration refreshes u/v once per step, after Adam
-(``ops/spectral_norm.update_spectral_norms``).  Optax and ``torch.optim.Adam``
+(``ops/spectral_norm.update_spectral_norms``).  Every parameter of a stepped
+network takes every step, with a zero gradient where the loss does not
+reach it, as optax steps it: one count per network, as ``opt_state.npz``
+records it.  Optax and ``torch.optim.Adam``
 place epsilon and the bias corrections alike (lr * m_hat / (sqrt(v_hat) +
 eps)); they round the moments' updates in another order.  The device mesh
 of the JAX package (``mesh_and_rules``) waits for ROADMAP Queue 1.9.
@@ -135,12 +138,16 @@ def make_train_step(cfg: Config, horizon: int):
         loss.backward()
         with torch.no_grad():
             for name, opt in state.optimizers.items():
-                if name in CLIPPED:
-                    for group in opt.param_groups:
-                        for p in group["params"]:
-                            if p.grad is not None:
-                                p.grad.clamp_(-cfg.grad_clip_value,
-                                              cfg.grad_clip_value)
+                for group in opt.param_groups:
+                    for p in group["params"]:
+                        if p.grad is None:
+                            # a leaf the loss does not reach (the transition at
+                            # horizon 3, the discriminator): optax steps it with
+                            # a zero gradient, counting the step and decaying
+                            # its moments
+                            p.grad = torch.zeros_like(p)
+                        elif name in CLIPPED:
+                            p.grad.clamp_(-cfg.grad_clip_value, cfg.grad_clip_value)
                 opt.step()
             params = update_spectral_norms(state.params)
         return (TrainState(params, state.optimizers, state.step + 1),

@@ -5,6 +5,7 @@
     python3 scripts/rehearse_chip_smoke.py --train-only  # phase 6 alone
     python3 scripts/rehearse_chip_smoke.py --train-only --hidden 128 --batch 8
     python3 scripts/rehearse_chip_smoke.py --mpc-only    # phase 8 alone
+    python3 scripts/rehearse_chip_smoke.py --cli-only    # phase 9 alone
 
 The script's control flow, shapes and checks run with every CUDA call
 mapped to the CPU: ``torch.Generator(device="cuda")`` and
@@ -14,7 +15,10 @@ count them), the build, the kernels' shared-memory queries and ``ptxas``
 report are stubbed, ``cuda_ms`` returns 1.0 and the profiler, which sees no
 device on the CPU, is skipped.  Batches and the trained model are shrunk
 (``--batch``, ``--hidden``); the MPC phase plays 2 episodes of a few steps
-on a shallow beam, so its score floor is not held.  Every time it prints is a CPU time or a stub,
+on a shallow beam, so its score floor is not held; the command-line phase
+runs its Config shrunk the same way (the trained model at ``--hidden``, the
+shipped bundles at their width), one causal run, 20 Higgins iterations,
+and its subprocess with ``--platform cpu``.  Every time it prints is a CPU time or a stub,
 never a card's.  It finds faults of control flow before a card is used;
 the numbers of the checks (losses, curves, round trips) are the CPU's.
 """
@@ -24,6 +28,7 @@ from __future__ import annotations
 import argparse
 import os
 import pathlib
+import subprocess
 import sys
 import time
 import types
@@ -73,6 +78,8 @@ def main() -> int:
                     help="run phase 6 (training) alone")
     ap.add_argument("--mpc-only", action="store_true",
                     help="run phase 8 (MPC) alone")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="run phase 9 (the command line) alone")
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
@@ -81,6 +88,7 @@ def main() -> int:
     import chip_smoke as cs
     from scmgan_tpu_torch.agent import mpc, oracle
     from scmgan_tpu_torch.analysis import mse
+    from scmgan_tpu_torch.cli import main as cli
     from scmgan_tpu_torch.data import datasource
     from scmgan_tpu_torch.models import quantized
     from scmgan_tpu_torch.train import checkpoint
@@ -104,6 +112,21 @@ def main() -> int:
     cs.MPC_GRID_EPISODES, cs.MPC_PONG_MAX_EPISODES, cs.MPC_AGREEMENT_STATES = 2, 2, 3
     cs.MPC_GRID_FLOOR = -float("inf")
     cs.MPC_CHECK_BATCHES, cs.MPC_TIME_SHAPES = (2, 4), ((16, 2), (64, 2))
+    cli_config = cli.config_from_args
+
+    def small_cli_config(a):
+        fresh = a.load_from is None or "chip_smoke_cli_train_" in a.load_from
+        return cli_config(a).replace(
+            batch_size=args.batch, eval_batch_size=4, eval_timesteps=8, mpc_max_steps=4,
+            mpc_lookahead=1, mpc_rollout_depth=2,
+            **({"hidden_dim": args.hidden} if fresh else {}))
+
+    cli.config_from_args = small_cli_config
+    cli_main = cli.main
+    cli.main = lambda argv: cli_main(argv + ["--causal-runs", "1", "--higgins-iters", "20"])
+    run = subprocess.run
+    cs.subprocess = types.SimpleNamespace(
+        run=lambda argv, **kw: run(list(argv) + ["--platform", "cpu"], **kw))
 
     t0 = time.perf_counter()
     if args.train_only:
@@ -112,6 +135,10 @@ def main() -> int:
         rc = 0
     elif args.mpc_only:
         print("launches", cs.mpc_phase()["launches"])
+        rc = 0
+    elif args.cli_only:
+        torch.cuda.is_available = lambda: True
+        print("launches", cs.cli_phase()["launches"])
         rc = 0
     else:
         torch.cuda.is_available = lambda: True
