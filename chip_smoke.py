@@ -91,13 +91,30 @@ Phases:
      ``.pth`` files, its MSE curve beside the shipped one; then one
      ``python -m scmgan_tpu_torch`` run in its own process, which must
      exit 0 and write its checkpoint;
-  10. a ``kernels`` JSON line (launches summed over the main paths), the
+  10. the sixth main path, the env zoo and the shipped bundles of its envs
+     (``zoo_phase``): (a) each of the twelve envs ported last (boxes,
+     pong family, roomba, gameoflife) reset on the CPU at B = 100, copied
+     to the card and stepped 40 times on both under the same actions,
+     state, reward, done and frame equal (rotating_boxes' edge pixels
+     excepted), ms per card step printed; (b) both bf16 kernels against
+     their plain versions on boxes_cf (1 colour) and minipong_cf (3
+     colours) at B = 1, 100 and the reconstruction windows' batches, and
+     the transition with 1 action (17 conv1 inputs, a gameoflife model);
+     (c) ``--evaluate --evaluations 0 --higgins`` on boxes_cf and
+     minipong_cf in this process, launches held to the implied count, the
+     free-run timed alone and its first steps held against the plain path
+     (5%), the curve and Higgins accuracies printed beside the records;
+     (d) ``python -m scmgan_tpu_torch.analysis.sanity`` on minipong_cf in
+     its own process, its PNG on disk; (e) ``visualize_bptt`` on
+     gridworld_cf, pong_cf and minipacman_cf, seeds 0-7, the first seed
+     that fires printed, at least one bundle firing;
+  11. a ``kernels`` JSON line (launches summed over the main paths), the
      card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
 A watchdog ends a hang with a traceback and a non-zero exit (armed for
-phases 1-8, and again for phase 9).
+phases 1-8, and again for phase 9 and for phase 10).
 """
 
 from __future__ import annotations
@@ -127,11 +144,13 @@ from scmgan_tpu_torch.agent.mpc import (
 from scmgan_tpu_torch.agent.oracle import play_oracle_on_device
 from scmgan_tpu_torch.agent.play import play
 from scmgan_tpu_torch.agent.play_device import _episode_chunk, play_on_device
-from scmgan_tpu_torch.analysis import visualize
+from scmgan_tpu_torch.analysis import excitation_bptt, visualize
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
 from scmgan_tpu_torch.cli import main as cli
 from scmgan_tpu_torch.config import Config
 from scmgan_tpu_torch.data.datasource import allocate_datasource
+from scmgan_tpu_torch.envs import get_env
+from scmgan_tpu_torch.envs.boxes import rotbox_crosses
 from scmgan_tpu_torch.models.quantized import quantize_transition, transition_int8_v2
 from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.kernels import int8_transition as i8
@@ -147,7 +166,7 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
     transition_plain,
     transition_probs,
 )
-from scmgan_tpu_torch.models.world_model import WorldModel, encode
+from scmgan_tpu_torch.models.world_model import WorldModel, encode, init_world_model
 from scmgan_tpu_torch.train import checkpoint as ckpt
 from scmgan_tpu_torch.train import trainer
 from scmgan_tpu_torch.train.checkpoint import (
@@ -158,6 +177,7 @@ from scmgan_tpu_torch.train.checkpoint import (
 )
 from scmgan_tpu_torch.train.distill import calibrate_student, measure_fidelity
 from scmgan_tpu_torch.train.losses import LossNoise
+from scmgan_tpu_torch.utils.device import no_tf32
 
 WATCHDOG_S = 300
 BUNDLE = "pretrained_models/minipacman_cf"
@@ -1410,6 +1430,233 @@ def cli_phase():
             "d_errs": d_errs, "int8_checks": int8_checks}
 
 # ---------------------------------------------------------------------------
+# the env zoo and the shipped 64x64 bundles of its envs
+# ---------------------------------------------------------------------------
+
+ZOO_ENVS = ("boxes", "gameoflife", "hardpong", "mediumpong", "minipong", "multibox",
+            "realpong", "roomba", "roomba1", "rotating_boxes", "staticpong", "superpong")
+ZOO_STEPS = 40
+ZOO_BUNDLES = {"boxes": "pretrained_models/boxes_cf",
+               "minipong": "pretrained_models/minipong_cf"}
+EXCITATION_BUNDLES = (("gridworld", MPC_GRID), ("pong", "pretrained_models/pong_cf"),
+                      ("minipacman", BUNDLE))
+EXCITATION_SEEDS = 8       # scripts/excitation_zoo.py's tries
+# - env steps on the card against the CPU: integer dynamics, exact; the
+#   rotating square's corners come from f32 sin/cos, which the card and the
+#   CPU may round differently in the last bit, so a pixel may differ only
+#   where an edge's cross product is within EDGE_EPS of 0 on the CPU.
+EDGE_EPS = 1e-3
+# - the free-runs' first steps against the plain path: CURVE_RTOL.  boxes_cf
+#   predicts its frames almost exactly (pixel MSE 1e-8 to 1e-5 over the first
+#   steps, below CURVE_ATOL), so these curves get an absolute floor far
+#   below their first step's MSE.
+ZOO_CURVE_ATOL = 1e-10
+
+
+def zoo_envs_on_card() -> dict:
+    """(a) Each of the env zoo's names reset on the CPU at B = 100 and copied
+    to the card; both copies stepped ZOO_STEPS times under the same actions,
+    state, reward, done and frame held equal at every step.  Returns ms per
+    card step (step and render, the first step left out)."""
+    ms = {}
+    for name in ZOO_ENVS:
+        spec = get_env(name)
+        cpu = spec.reset(BATCH, "cpu", torch.Generator().manual_seed(SEED))
+        card = type(cpu)(*(x.to("cuda") for x in cpu))
+        actions = np.random.default_rng(SEED).integers(0, spec.num_actions, (ZOO_STEPS, BATCH))
+        seconds, edge_flips = 0.0, 0
+        for t in range(ZOO_STEPS):
+            a = torch.from_numpy(actions[t])
+            cpu, r_cpu, d_cpu = spec.step(cpu, a, None)
+            f_cpu = spec.render(cpu)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card, r_card, d_card = spec.step(card, a.to("cuda"), None)
+            f_card = spec.render(card)
+            torch.cuda.synchronize()
+            seconds += (time.perf_counter() - t0) if t else 0.0
+            for field, x, y in zip(type(cpu)._fields, cpu, card):
+                if not torch.equal(x, y.cpu()):
+                    raise AssertionError(f"zoo {name}: {field} differs at step {t}")
+            if not (torch.equal(r_cpu, r_card.cpu()) and torch.equal(d_cpu, d_card.cpu())):
+                raise AssertionError(f"zoo {name}: reward or done differs at step {t}")
+            diff = (f_cpu != f_card.cpu()).any(dim=-1)
+            if name == "rotating_boxes":
+                edge = (rotbox_crosses(cpu.width, cpu.x, cpu.y, cpu.rotation).abs()
+                        < EDGE_EPS).any(dim=1)
+                edge_flips += int((diff & edge).sum())
+                diff &= ~edge
+            if diff.any():
+                raise AssertionError(f"zoo {name}: {int(diff.sum())} pixels differ at step {t}")
+        ms[name] = 1e3 * seconds / (ZOO_STEPS - 1)
+        say(f"[zoo] (a) {name}: {ZOO_STEPS} steps at B={BATCH}, card equal to CPU"
+            + (f" ({edge_flips} edge pixels differ, |cross| < {EDGE_EPS})"
+               if name == "rotating_boxes" else "")
+            + f"; {ms[name]:.4f} ms per card step (step + render)")
+    return ms
+
+
+def zoo_kernel_checks():
+    """(b) Each kernel against its plain version at every shape the zoo's
+    runs give it: boxes_cf (1 colour) and minipong_cf (3 colours), 64x64,
+    4 actions, at B = 1 (the forward simulation, the sanity check), the
+    evaluation's batch and each reconstruction window's; and the transition
+    with 1 action (17 conv1 input channels, a gameoflife model) on
+    ``init_world_model`` weights.  Returns (transition checks, decoder
+    max errors)."""
+    rng = np.random.default_rng(SEED + 10)
+    params = inspect.signature(visualize.visualize_reconstruction).parameters
+    t_viz, offsets = params["timesteps"].default, params["offsets"].default
+    batches = sorted({1, BATCH, *(t_viz - 3 - o for o in offsets)})
+    checks, d_errs = [], []
+    for env, path in ZOO_BUNDLES.items():
+        model = load_model(path, device="cuda")
+        acts = model.transition["conv1"]["w"].shape[2] - 16
+        pt, pd = (pack_transition_weights(model.transition, 16, acts),
+                  pack_decoder_weights(model.decoder, 16))
+        label = f" ({path.split('/')[-1]}, {acts} actions, {pd['color']} colour"
+        for b in batches:
+            z, a = binary_latents(rng, b), onehot_actions(rng, b, acts)
+            checks.append(check_transition(pt, z, a, 16, label + ")"))
+            d_errs.append(check_decoder(pd, z, label + ")"))
+    one = init_world_model(torch.Generator(device="cuda").manual_seed(SEED), 16, 1, 1, 1, 1)
+    z, a = binary_latents(rng, EXTRA_BATCH), onehot_actions(rng, EXTRA_BATCH, 1)
+    checks.append(check_transition(pack_transition_weights(one.transition, 16, 1), z, a, 16,
+                                   " (init_world_model, 1 action, 17 conv1 inputs)"))
+    return checks, d_errs
+
+
+def zoo_excitation(out_dir) -> dict:
+    """(e) ``visualize_bptt`` on the bundles, as scripts/excitation_zoo.py
+    runs it: seeds 0-7, the start frames drawn from the datasource; the
+    first seed that fires per bundle, or None."""
+    fired = {}
+    for env, path in EXCITATION_BUNDLES:
+        model = load_model(path, device="cuda")
+        ds = allocate_datasource(env, seed=0, device="cuda")
+        runs = []
+
+        def recording(backtrack):
+            def run(*a, **k):
+                runs.append(backtrack(*a, **k))
+                return runs[-1]
+            return run
+
+        fired[env] = None
+        t0 = time.perf_counter()
+        with patched(excitation_bptt, "backtrack", recording):
+            for seed in range(EXCITATION_SEEDS):
+                obs, *_ = ds.collect(1, 3, generator=torch.Generator(
+                    device="cuda").manual_seed(100 + seed))
+                with torch.no_grad(), no_tf32():
+                    z0 = encode(model.encoder, obs[:, 0:3])
+                with contextlib.redirect_stdout(io.StringIO()):
+                    video = excitation_bptt.visualize_bptt(
+                        model, z0, ds.binary_input_channels, steps=30, out_dir=out_dir,
+                        seed=seed, filename=f"excitation_bptt_{env}_seed{seed}.mp4")
+                if video is not None:
+                    bt = runs[-1]
+                    fired[env] = {"seed": seed, "t_hit": bt.t_hit,
+                                  "reward": bt.rewards[bt.t_hit], "video": video}
+                    break
+        say(f"[zoo] (e) visualize_bptt {path}: "
+            + (f"seed {fired[env]['seed']} fires at t+{fired[env]['t_hit']}, expected "
+               f"reward {fired[env]['reward']:.4f}; video {fired[env]['video']}"
+               if fired[env] else f"no seed of {EXCITATION_SEEDS} fires")
+            + f" ({time.perf_counter() - t0:.3f} s)")
+    if not any(fired.values()):
+        raise AssertionError("visualize_bptt: no bundle fires")
+    return fired
+
+
+def zoo_phase():
+    """The env zoo and the shipped bundles of its envs: (a) every new env
+    on the card against the CPU; (b) the kernels at the runs' shapes;
+    (c) ``--evaluate`` with Higgins on boxes_cf and minipong_cf; (d) the
+    sanity check as a subprocess; (e) ``visualize_bptt``.  Returns the runs'
+    launch counts, the kernel checks and the times."""
+    t_phase = time.perf_counter()
+    env_ms = zoo_envs_on_card()
+    checks, d_errs = zoo_kernel_checks()
+    totals, walls, frames_s = [], {}, {}
+    with open(HIGGINS_RECORD) as f:
+        hig_records = json.load(f)
+
+    # (c) the evaluation with videos and Higgins; no play (the reward is 0)
+    for env, path in ZOO_BUNDLES.items():
+        argv = ["--env", env, "--evaluate", "--load-from", path, "--evaluations", "0",
+                "--higgins", "--seed", str(SEED),
+                "--out-dir", tempfile.mkdtemp(prefix=f"chip_smoke_zoo_{env}_")]
+        cfg = cli_config(argv)
+        res, launches, walls[env] = run_cli(f"zoo: {env}", argv)
+        totals.append(launches)
+        check_launches(env, launches, evaluate_launches(cfg, videos=True))
+        curve = np.asarray(res["evaluate"][0])
+        n = min(COMPARE_STEPS, len(curve))
+        model = res["state"].params
+        acts = model.transition["conv1"]["w"].shape[2] - cfg.latent_dim
+        ds = allocate_datasource(env, seed=cfg.seed, device="cuda")
+        pt = pack_transition_weights(model.transition, cfg.latent_dim, acts)
+        pd = pack_decoder_weights(model.decoder, cfg.latent_dim)
+        with torch.inference_mode():
+            # evaluate() draws its batch from a generator seeded 3 * train_iter
+            batch = ds.collect(cfg.eval_batch_size, cfg.eval_timesteps,
+                               generator=torch.Generator(device="cuda").manual_seed(
+                                   3 * cfg.start_iter))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = _free_run_stats(model, batch, acts)[0].cpu().numpy()
+            free_s = time.perf_counter() - t0
+            plain = _free_run_stats(
+                model, tuple(x[:, :n + 2] for x in batch), acts,
+                transition_fn=lambda z, a: transition_plain(pt, z, a, dtype=torch.bfloat16),
+                decode_fn=lambda z: decode_plain(pd, z, dtype=torch.bfloat16))[0].cpu().numpy()
+        frames_s[env] = cfg.eval_batch_size * (cfg.eval_timesteps - 2) / free_s
+        say(f"[zoo] (c) {env} free-run alone, B={cfg.eval_batch_size} T={cfg.eval_timesteps} "
+            f"(batch collected beforehand): {free_s:.3f} s, {frames_s[env]:.1f} frames/s")
+        say(f"[zoo] (c) {env} pixel MSE, first {n} steps: run   "
+            f"{np.array2string(curve[:n], precision=6)}")
+        say(f"[zoo] (c) {env}                       plain "
+            f"{np.array2string(plain, precision=6)}")
+        print_curve(f"zoo {env}", curve, f"{path}/mse_pixel_iter_010000.json")
+        rec = hig_records[f"{env}_cf"]
+        hig = res["higgins"]
+        say(f"[zoo] (c) {env} Higgins conv {hig['conv']:.4f} (record "
+            f"{rec['higgins_conv_sum']}), spatial {hig['spatial']:.4f} (record "
+            f"{rec['higgins_spatial']}); chance {rec['chance']}")
+        if not np.allclose(again[:len(curve)], curve, rtol=1e-5, atol=1e-12):
+            raise AssertionError(f"zoo {env}: the re-collected batch does not reproduce the run")
+        if not np.allclose(curve[:n], plain, rtol=CURVE_RTOL, atol=ZOO_CURVE_ATOL):
+            raise AssertionError(f"zoo {env}: the free-run disagrees with the plain path")
+        if not (np.isfinite(res["evaluate"]).all()
+                and all(0.0 <= v <= 1.0 for v in hig.values())):
+            raise AssertionError(f"zoo {env}: the evaluation failed its checks")
+
+    # (d) the sanity check in its own process, as a user starts it
+    out = tempfile.mkdtemp(prefix="chip_smoke_sanity_")
+    argv = [sys.executable, "-m", "scmgan_tpu_torch.analysis.sanity", "--env", "minipong",
+            "--load-from", ZOO_BUNDLES["minipong"], "--out-dir", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True, timeout=300)
+    walls["sanity"] = time.perf_counter() - t0
+    png = os.path.join(out, "sanity_reconstruction.png")
+    size = os.path.getsize(png) if os.path.exists(png) else 0
+    say(f"[zoo] (d) {' '.join(argv[1:])}: exit {proc.returncode} in {walls['sanity']:.3f} s; "
+        f"{png}: {size} bytes")
+    if proc.returncode != 0 or size == 0:
+        say(proc.stdout[-2000:])
+        say(proc.stderr[-2000:])
+        raise AssertionError("python -m scmgan_tpu_torch.analysis.sanity failed")
+
+    t0 = time.perf_counter()
+    fired = zoo_excitation(tempfile.mkdtemp(prefix="chip_smoke_excitation_"))
+    walls["excitation"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    say("[zoo] wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return {"launches": add_launches(*totals), "walls": walls, "checks": checks,
+            "d_errs": d_errs, "env_ms": env_ms, "frames_s": frames_s, "excitation": fired}
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -1691,7 +1938,13 @@ def main() -> int:
     t_err = max([t_err] + [c["t_err"] for c in cli_runs["checks"]])
     d_err = max([d_err] + cli_runs["d_errs"])
 
-    # 10. the kernels line.  launches: the sum over the main paths, each
+    # 10. the sixth main path: the env zoo and its shipped bundles
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    zoo = zoo_phase()
+    t_err = max([t_err] + [c["t_err"] for c in zoo["checks"]])
+    d_err = max([d_err] + zoo["d_errs"])
+
+    # 11. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
@@ -1700,7 +1953,8 @@ def main() -> int:
                    "measure_fidelity": fid_launches[extra.pop("fid_counter")],
                    "train": train_launches[counter],
                    **{path: n[counter] for path, n in mpc["launches"].items()},
-                   "cli": cli_runs["launches"][counter]}
+                   "cli": cli_runs["launches"][counter],
+                   "zoo": zoo["launches"][counter]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,

@@ -52,7 +52,11 @@ def factor_grid(z: np.ndarray, pad: int = 2) -> np.ndarray:
 def reward_overlay(rgb: np.ndarray, reward_map: np.ndarray) -> np.ndarray:
     """Overlay positive reward in blue, negative in red, on an (H, W, 3)
     image (reference composite_rgb_reward_factor_image, main.py:663-678).
-    reward_map: (h, w, R) signed."""
+    reward_map: (h, w, R) signed.  A grey (H, W, 1) frame (boxes,
+    gameoflife) is made RGB first; the JAX package's function raises an
+    IndexError on it, so its forward-simulation video fails on those envs."""
+    if rgb.shape[-1] == 1:
+        rgb = np.repeat(rgb, 3, axis=-1)
     h, w = rgb.shape[:2]
     signed = np.asarray(reward_map).sum(axis=-1)
     pos = np.clip(signed, 0, 1)

@@ -1,4 +1,19 @@
 """Environment registry.  Importing this package registers the ported envs."""
 
-from scmgan_tpu_torch.envs.base import EnvSpec, HostEnv, get_env, register, rollout  # noqa: F401
-from scmgan_tpu_torch.envs import betterpong, gridworld, minipacman  # noqa: F401
+from scmgan_tpu_torch.envs.base import (  # noqa: F401
+    EnvSpec,
+    HostEnv,
+    available_envs,
+    get_env,
+    register,
+    rollout,
+)
+from scmgan_tpu_torch.envs import (  # noqa: F401
+    betterpong,
+    boxes,
+    gameoflife,
+    gridworld,
+    minipacman,
+    pong_family,
+    roomba,
+)

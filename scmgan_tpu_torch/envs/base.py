@@ -70,6 +70,44 @@ def get_env(name: str) -> EnvSpec:
     return _REGISTRY[name]()
 
 
+def available_envs():
+    """The registered names, sorted."""
+    return sorted(_REGISTRY)
+
+
+def _start_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("a random start is drawn from a generator; pass one, "
+                         "or inject the start state")
+    return generator
+
+
+def draw_ints(generator: torch.Generator, batch_size: int, lo: int, hi: int):
+    """(B,) int64 uniform in [lo, hi), drawn from ``generator`` on its device."""
+    g = _start_generator(generator)
+    return torch.randint(lo, hi, (batch_size,), generator=g, device=g.device)
+
+
+def draw_uniform(generator: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0):
+    """f32 uniform in [lo, hi) of ``shape``, drawn from ``generator`` on its
+    device."""
+    g = _start_generator(generator)
+    return lo + (hi - lo) * torch.rand(shape, generator=g, device=g.device)
+
+
+def draw_nothing(batch_size: int, generator: torch.Generator):
+    """``draw_noise`` of an env whose step draws nothing."""
+    return None
+
+
+def no_reward(like: torch.Tensor):
+    """The zero reward (B, 1) and never-done flags (B,) of an env with no
+    reward and no end, on ``like``'s (B, ...) device."""
+    b = like.shape[0]
+    return (torch.zeros((b, 1), dtype=torch.float32, device=like.device),
+            torch.zeros(b, dtype=torch.bool, device=like.device))
+
+
 def _policy_actions(spec: EnvSpec, generator: torch.Generator, batch: int,
                     policy: str) -> torch.Tensor:
     """The collection policy's actions: uniformly random, or ``repeat``

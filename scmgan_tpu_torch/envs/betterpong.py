@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from scmgan_tpu_torch.envs.base import EnvSpec, register
+from scmgan_tpu_torch.envs.base import EnvSpec, draw_ints, register
 from scmgan_tpu_torch.envs.raster import rect_mask
 
 CHANNELS = 3
@@ -48,20 +48,14 @@ class State(NamedTuple):
 def reset(batch_size: int, device=None, generator: torch.Generator = None) -> State:
     """Uniform paddles, ball and velocities, drawn from ``generator`` on its
     device in the order of the fields."""
-    if generator is None:
-        raise ValueError("pong draws its start from a generator")
-    dev = generator.device
-    draw = lambda lo, hi: torch.randint(lo, hi, (batch_size,), generator=generator,  # noqa: E731
-                                        device=dev)
-    velocities = torch.tensor(_VELOCITIES, dtype=torch.int64, device=dev)
-    return State(
-        left_y=draw(MARGIN_Y, GAME_SIZE - MARGIN_Y),
-        right_y=draw(MARGIN_Y, GAME_SIZE - MARGIN_Y),
-        ball_x=draw(MARGIN_X, GAME_SIZE - MARGIN_X),
-        ball_y=draw(MARGIN_Y, GAME_SIZE - MARGIN_Y),
-        vel_x=velocities[draw(0, 4)],
-        vel_y=velocities[draw(0, 4)],
-    )
+    draw = lambda lo, hi: draw_ints(generator, batch_size, lo, hi)  # noqa: E731
+    left_y = draw(MARGIN_Y, GAME_SIZE - MARGIN_Y)
+    right_y = draw(MARGIN_Y, GAME_SIZE - MARGIN_Y)
+    ball_x = draw(MARGIN_X, GAME_SIZE - MARGIN_X)
+    ball_y = draw(MARGIN_Y, GAME_SIZE - MARGIN_Y)
+    velocities = torch.tensor(_VELOCITIES, dtype=torch.int64, device=left_y.device)
+    return State(left_y=left_y, right_y=right_y, ball_x=ball_x, ball_y=ball_y,
+                 vel_x=velocities[draw(0, 4)], vel_y=velocities[draw(0, 4)])
 
 
 def draw_noise(batch_size: int, generator: torch.Generator):

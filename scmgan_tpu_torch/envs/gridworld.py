@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from scmgan_tpu_torch.envs.base import EnvSpec, register
+from scmgan_tpu_torch.envs.base import EnvSpec, draw_ints, register
 from scmgan_tpu_torch.envs.raster import rect_mask
 
 CHANNELS = 3
@@ -34,10 +34,7 @@ class State(NamedTuple):
 
 def reset(batch_size: int, device=None, generator: torch.Generator = None) -> State:
     """Uniform start positions, drawn from ``generator`` on its device."""
-    if generator is None:
-        raise ValueError("gridworld draws its start from a generator")
-    draw = lambda lo, hi: torch.randint(lo, hi, (batch_size,), generator=generator,  # noqa: E731
-                                        device=generator.device)
+    draw = lambda lo, hi: draw_ints(generator, batch_size, lo, hi)  # noqa: E731
     return State(ball_x=draw(MARGIN_X, GAME_SIZE - MARGIN_X),
                  ball_y=draw(MARGIN_Y, GAME_SIZE - MARGIN_Y))
 

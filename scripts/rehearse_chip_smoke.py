@@ -6,6 +6,7 @@
     python3 scripts/rehearse_chip_smoke.py --train-only --hidden 128 --batch 8
     python3 scripts/rehearse_chip_smoke.py --mpc-only    # phase 8 alone
     python3 scripts/rehearse_chip_smoke.py --cli-only    # phase 9 alone
+    python3 scripts/rehearse_chip_smoke.py --zoo-only    # phase 10 alone
 
 The script's control flow, shapes and checks run with every CUDA call
 mapped to the CPU: ``torch.Generator(device="cuda")`` and
@@ -80,6 +81,8 @@ def main() -> int:
                     help="run phase 8 (MPC) alone")
     ap.add_argument("--cli-only", action="store_true",
                     help="run phase 9 (the command line) alone")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="run phase 10 (the env zoo and its bundles) alone")
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
@@ -139,6 +142,10 @@ def main() -> int:
     elif args.cli_only:
         torch.cuda.is_available = lambda: True
         print("launches", cs.cli_phase()["launches"])
+        rc = 0
+    elif args.zoo_only:
+        torch.cuda.is_available = lambda: True
+        print("launches", cs.zoo_phase()["launches"])
         rc = 0
     else:
         torch.cuda.is_available = lambda: True

@@ -41,6 +41,7 @@ from test_torch_port_train_step import (
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 REFERENCE_PTH = os.path.join(REPO, "pretrained_models", "reference_ab_gridworld")
+REFERENCE_PTH_PONG = os.path.join(REPO, "pretrained_models", "reference_ab_pong")
 BUNDLES = sorted(os.path.dirname(p) for p in glob.glob(
     os.path.join(REPO, "pretrained_models", "*", "model-transition.npz")))
 # The importer's spectral-norm u and v come out of one power iteration in
@@ -259,12 +260,14 @@ def test_bundle_hash_matches_jax(bundle):
     assert tckpt.bundle_hash(bundle) == jckpt.bundle_hash(bundle)
 
 
-def test_reference_pth_import_matches_jax():
+@pytest.mark.parametrize("bundle", [REFERENCE_PTH, REFERENCE_PTH_PONG], ids=os.path.basename)
+def test_reference_pth_import_matches_jax(bundle):
     """w and b exact; the spectral-norm u and v within SN_UV_ATOL; the same
-    model through load_model's .pth branch."""
-    want = _jax_flat(jimport.load_reference_checkpoint(REFERENCE_PTH)._asdict())
+    model through load_model's .pth branch.  gridworld (16x16) and pong
+    (64x64, 3 colours: decoder conv2.weight (64, 48, 3, 3))."""
+    want = _jax_flat(jimport.load_reference_checkpoint(bundle)._asdict())
     got = _flat(tckpt.params_to_numpy(
-        timport.load_reference_checkpoint(REFERENCE_PTH, device="cpu")))
+        timport.load_reference_checkpoint(bundle, device="cpu")))
     assert sorted(got) == sorted(want)
     for path, leaf in want.items():
         assert got[path].shape == leaf.shape and got[path].dtype == leaf.dtype, path
@@ -272,7 +275,7 @@ def test_reference_pth_import_matches_jax():
             np.testing.assert_allclose(got[path], leaf, rtol=0, atol=SN_UV_ATOL, err_msg=path)
         else:
             np.testing.assert_array_equal(got[path], leaf, err_msg=path)
-    via_load = _flat(tckpt.params_to_numpy(tckpt.load_model(REFERENCE_PTH, device="cpu")))
+    via_load = _flat(tckpt.params_to_numpy(tckpt.load_model(bundle, device="cpu")))
     for path, leaf in got.items():
         np.testing.assert_array_equal(via_load[path], leaf)
 
