@@ -108,13 +108,35 @@ Phases:
      its own process, its PNG on disk; (e) ``visualize_bptt`` on
      gridworld_cf, pong_cf and minipacman_cf, seeds 0-7, the first seed
      that fires printed, at least one bundle firing;
-  11. a ``kernels`` JSON line (launches summed over the main paths), the
+  11. the seventh main path, making a student (``distill_phase``): (a) the
+     int8 variants halo / split / ring with the f32 epilogue bit-equal to
+     the int8 kernel at B = 100, 64x64, on minipacman_cf's static packing
+     and the h48 student's calibrated one (the bf16 epilogue's agreement
+     and each variant's plain-route ms printed), ``decode_int8`` bit-equal
+     to the CPU and within the serving MAE of the decoder kernel (its max
+     printed beside the exact decoder's); (b) one distillation, one
+     QAT and one GT fine-tune step (B = 2) card against CPU, TF32 off;
+     (c) ``python -m scmgan_tpu_torch.cli.distill_student`` in its own
+     process: an h48 student from minipacman_cf (60 iterations, QAT from
+     30, 20 GT iterations, one gate seed), its BCE falling, its files, the
+     teacher's hash and decoder, launches 0 in training and the gate's
+     implied count; (c') each step kind at the script's defaults in this
+     process, at PyTorch's default precision as the command runs them (cuDNN
+     TF32 on): ms a step, the rollout's share, peak memory, one profiled
+     step (busy share, kernel families); (d) ``--fidelity-only
+     --eval-seeds 4`` on copies of the three shipped students, each
+     calibrated packing held bit-equal to the
+     plain int8 version first, within_1pct held, the 4-seed delta printed
+     beside each record, nothing written under pretrained_models/;
+     (e) the library ops (CSRN, CoordConv, smoothing, random_eps,
+     hypersphere_norm, cov) card against CPU;
+  12. a ``kernels`` JSON line (launches summed over the main paths), the
      card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
 A watchdog ends a hang with a traceback and a non-zero exit (armed for
-phases 1-8, and again for phase 9 and for phase 10).
+phases 1-8, and again for phases 9, 10 and 11).
 """
 
 from __future__ import annotations
@@ -125,6 +147,7 @@ import inspect
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -146,12 +169,23 @@ from scmgan_tpu_torch.agent.play import play
 from scmgan_tpu_torch.agent.play_device import _episode_chunk, play_on_device
 from scmgan_tpu_torch.analysis import excitation_bptt, visualize
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
+from scmgan_tpu_torch.cli import distill_student
 from scmgan_tpu_torch.cli import main as cli
 from scmgan_tpu_torch.config import Config
 from scmgan_tpu_torch.data.datasource import allocate_datasource
-from scmgan_tpu_torch.envs import get_env
+from scmgan_tpu_torch.envs import get_env, rollout
 from scmgan_tpu_torch.envs.boxes import rotbox_crosses
-from scmgan_tpu_torch.models.quantized import quantize_transition, transition_int8_v2
+from scmgan_tpu_torch.models.quantized import (
+    decode_int8,
+    quantize_decoder,
+    quantize_transition,
+    transition_int8,
+    transition_int8_halo,
+    transition_int8_ring,
+    transition_int8_split,
+    transition_int8_v2,
+)
+from scmgan_tpu_torch.ops import coordconv, csrn, smoothing
 from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.kernels import int8_transition as i8
 from scmgan_tpu_torch.ops.kernels.fused_decoder import (
@@ -166,9 +200,15 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
     transition_plain,
     transition_probs,
 )
-from scmgan_tpu_torch.models.world_model import WorldModel, encode, init_world_model
+from scmgan_tpu_torch.models.world_model import (
+    WorldModel,
+    decode,
+    encode,
+    init_transition,
+    init_world_model,
+)
 from scmgan_tpu_torch.train import checkpoint as ckpt
-from scmgan_tpu_torch.train import trainer
+from scmgan_tpu_torch.train import distill, trainer
 from scmgan_tpu_torch.train.checkpoint import (
     flatten_tree,
     load_model,
@@ -177,6 +217,8 @@ from scmgan_tpu_torch.train.checkpoint import (
 )
 from scmgan_tpu_torch.train.distill import calibrate_student, measure_fidelity
 from scmgan_tpu_torch.train.losses import LossNoise
+from scmgan_tpu_torch.ops.stochastic import hypersphere_norm, random_eps
+from scmgan_tpu_torch.utils import stats
 from scmgan_tpu_torch.utils.device import no_tf32
 
 WATCHDOG_S = 300
@@ -1657,6 +1699,433 @@ def zoo_phase():
             "d_errs": d_errs, "env_ms": env_ms, "frames_s": frames_s, "excitation": fired}
 
 # ---------------------------------------------------------------------------
+# make a student: the int8 variants and decoder, the distillation steps, the
+# command line that makes a student, and the shipped students' gates
+# ---------------------------------------------------------------------------
+
+# Tolerances, each with its reason:
+# - the int8 variants (halo, split, ring) with the f32 epilogue compute the
+#   int32 sums exactly (f64 convs) and round the epilogue as the kernel does,
+#   so every bit equals the kernel's (each variant with its own head).
+# - the int8 decoder: exact int32 sums (f64 convs) and the same f32
+#   epilogue on both devices, so the card's logits equal the CPU's bit for
+#   bit (on DECODE_CPU_BATCH samples).  Against the bf16 decoder kernel, as
+#   sigmoids: the mean error of the JAX package's serving tolerance
+#   (tests/test_native_and_pallas.py:324).  Its max bound (0.1) was set on
+#   a random 8-latent model; on minipacman_cf's trained decoder the JAX
+#   function itself exceeds it (the port is bit-equal to JAX on the CPU:
+#   max 0.178 against the exact f32 decoder, at 9e-5 of the pixels past
+#   0.1), so the max is printed beside the f32 decoder's, not held.
+DECODE_INT8_MAE = 0.01
+DECODE_CPU_BATCH = 8
+# - the distillation steps on the card against the CPU (TF32 off): the convs
+#   sum in other orders, so the loss agrees to TRAIN_LOSS_RTOL; a fresh
+#   Adam's first step moves each parameter by lr * sign(g), so no parameter
+#   is more than 2 lr + TRAIN_PARAM_ATOL apart (phase 6's limits).
+DISTILL_LR = 1e-3
+DISTILL_CHECK = {"batch": 2, "rollout": 3, "horizon": 4}
+# (c) the student made at full width, the script's defaults otherwise
+DISTILL_ARGV = ["--env", ENV, "--teacher", BUNDLE, "--hidden", "48", "--iters", "60",
+                "--qat-from", "0.5", "--qat-recal", "10", "--gt-iters", "20",
+                "--eval-seeds", "1"]
+GATE_ARGV = []                 # the script's gate: B = 100 x 30
+GATE_TIMESTEPS = 30
+DISTILL_LOSS_WINDOW = 10       # BCE of the last 10 iterations below the first 10
+# (d) the shipped students' gates, 4 eval seeds each
+SHIPPED_STUDENTS = ("pretrained_models/minipacman_student_h48",
+                    "pretrained_models/minipacman_student_h64",
+                    "pretrained_models/minipacman_student_h80")
+GATE_SEEDS = 4
+HOLD_GATE = True
+# (c') the step kinds profiled at the script's defaults
+PROFILE_DISTILL = {"batch": 16, "rollout": 20, "horizon": 16}
+
+
+class FixedNoise:
+    """A ``DistillNoise`` whose draws were made beforehand: the same batch
+    and mix mask for the card's step and the CPU's."""
+
+    def __init__(self, batch, use, device):
+        self.batch = tuple(x.to(device) for x in batch)
+        self.use = use.to(device)
+
+    def rollout(self, spec, batch_size, timesteps):
+        return self.batch
+
+    def mix(self, p_on_policy, steps, batch_size):
+        return self.use
+
+
+def gate_launches(seeds: int) -> dict:
+    """The kernel launches of ``seeds`` fidelity gates at GATE_TIMESTEPS:
+    teacher and exact student through the bf16 kernels, the int8 student."""
+    t = GATE_TIMESTEPS
+    return {"fused_transition": seeds * 2 * (t - 1), "fused_decode": seeds * 3 * (t - 2),
+            "int8_transition": seeds * (t - 1)}
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(x, device) for x in tree))
+    return tree.detach().to(device).clone()
+
+
+def distill_variants(model, qt, z, a):
+    """(a) halo, split and ring on the card against the int8 kernel (the
+    static teacher packing and the calibrated h48 packing), the bf16
+    epilogue's agreement, the int8 decoder against the decoder kernel."""
+    packings = {"minipacman_cf static": quantize_transition(model.transition),
+                "h48 calibrated": qt}
+    zi = z.to(torch.int8)
+    times, agree = {}, {}
+    with torch.inference_mode():
+        for label, q in packings.items():
+            heads = {"sigmoid": transition_int8(q, z, a), "logit": transition_int8_v2(q, z, a)}
+            torch.cuda.synchronize()
+            for name, fn, head in (("halo", transition_int8_halo, "sigmoid"),
+                                   ("split", transition_int8_split, "sigmoid"),
+                                   ("ring", transition_int8_ring, "logit")):
+                got = fn(q, z, a, epilogue_dtype=torch.float32)
+                n_diff = int((got != heads[head]).sum())
+                bf = fn(q, z, a, epilogue_dtype=torch.bfloat16)
+                agree[f"{name} {label}"] = float((bf == got).float().mean())
+                times[f"{name} {label}"] = cuda_ms(
+                    lambda: fn(q, z, a, epilogue_dtype=torch.float32), iters=3, warmup=1)
+                say(f"[distill] (a) B={z.shape[0]} {name} ({label}, f32 epilogue) against the "
+                    f"int8 kernel's {head} head: {n_diff} of {got.numel()} bits differ "
+                    f"(limit 0); bf16 epilogue agrees on {agree[f'{name} {label}']:.6f} of "
+                    f"the bits; plain route {times[f'{name} {label}']:.3f} ms per call")
+                if n_diff:
+                    raise AssertionError(f"transition_int8_{name} ({label}) disagrees with "
+                                         "the int8 kernel")
+        qd = quantize_decoder(model.decoder)
+        pd = pack_decoder_weights(model.decoder, z.shape[-1])
+        logits = decode_int8(qd, zi)
+        n = DECODE_CPU_BATCH
+        on_cpu = decode_int8(to_device(qd, "cpu"), zi[:n].cpu())
+        cpu_equal = bool(torch.equal(logits[:n].cpu(), on_cpu))
+        got = torch.sigmoid(logits)
+        err = (got - torch.sigmoid(fused_decode(pd, z).float())).abs()
+        err_f32 = (got - torch.sigmoid(decode(model.decoder, z))).abs()
+        times["decode_int8"] = cuda_ms(lambda: decode_int8(qd, zi), iters=3, warmup=1)
+    mae, worst = float(err.mean()), float(err.max())
+    say(f"[distill] (a) decode_int8 B={z.shape[0]}: logits on the card bit-equal to the CPU's "
+        f"(first {n}): {cpu_equal}; against the decoder kernel, sigmoid: MAE {mae:.4g} "
+        f"(limit {DECODE_INT8_MAE}), max {worst:.4g} ({float((err > 0.1).float().mean()):.3g} "
+        f"of the pixels past 0.1); against the exact f32 decoder: MAE "
+        f"{float(err_f32.mean()):.4g}, max {float(err_f32.max()):.4g}; plain route "
+        f"{times['decode_int8']:.3f} ms per call")
+    if not (cpu_equal and mae < DECODE_INT8_MAE):
+        raise AssertionError("decode_int8 disagrees with the CPU or the decoder kernel")
+    return {"ms": times, "bf16_agreement": agree, "decode_mae": mae, "decode_max": worst,
+            "decode_max_vs_f32": float(err_f32.max())}
+
+
+def distill_steps_card_vs_cpu(model, student, ds):
+    """(b) one distillation step, one QAT step and one GT fine-tune step on
+    the card against the same step on the CPU (TF32 off): same weights, same
+    injected batch, mix mask and activation scales (calibrated on the card),
+    a fresh optimizer each."""
+    c = DISTILL_CHECK
+    spec = get_env(ENV)
+    gen = torch.Generator().manual_seed(SEED)
+    cpu_model = to_device(model, "cpu")
+    with no_tf32():
+        act_scale = distill.calibration_scales(
+            model, student, distill.DistillNoise(torch.Generator(device="cuda").manual_seed(
+                SEED)).calibration(ds), spec.num_actions)
+    runs = {"distill": (c["rollout"] + 2, False), "distill_qat": (c["rollout"] + 2, True),
+            "gt_finetune": (c["horizon"] + 3, True)}
+    out = {}
+    for kind, (timesteps, qat) in runs.items():
+        batch = rollout(spec, gen, c["batch"], timesteps)
+        use = torch.rand((c["rollout"], c["batch"]), generator=gen) < 0.5
+        res = {}
+        for dev in ("cuda", "cpu"):
+            sp = to_device(student, dev)
+            opt = distill.DistillOptimizer(sp, DISTILL_LR, 10)
+            teacher = model if dev == "cuda" else cpu_model
+            if kind == "gt_finetune":
+                step = distill.make_gt_finetune_step(spec, teacher, opt, c["batch"],
+                                                     c["horizon"])
+                args = ()
+            else:
+                step = distill.make_distill_step(spec, teacher, opt, c["batch"], c["rollout"],
+                                                 qat=qat)
+                args = (0.5,)
+            extra = (to_device(act_scale, dev),) if qat else ()
+            with no_tf32():
+                sp, loss, _ = step(sp, FixedNoise(batch, use, dev), *args, *extra)
+            res[dev] = (float(loss), dict(flatten_tree(to_device(sp, "cpu"))))
+        loss_c, loss_h = res["cuda"][0], res["cpu"][0]
+        diffs = [(res["cuda"][1][k] - v).abs() for k, v in res["cpu"][1].items()
+                 if "/sn/" not in k]
+        worst = max(float(d.max()) for d in diffs)
+        flips = sum(int((d > TRAIN_PARAM_ATOL).sum()) for d in diffs)
+        n_params = sum(d.numel() for d in diffs)
+        limit = 2 * DISTILL_LR + TRAIN_PARAM_ATOL
+        say(f"[distill] (b) {kind} step B={c['batch']} card vs CPU (TF32 off): loss "
+            f"{loss_c:.8g} / {loss_h:.8g} (rtol {TRAIN_LOSS_RTOL}); largest parameter "
+            f"difference after Adam {worst:.3g} (limit {limit:.3g}); {flips} of {n_params} "
+            f"parameters more than {TRAIN_PARAM_ATOL} apart (gradient signs that differ)")
+        if not (np.isclose(loss_c, loss_h, rtol=TRAIN_LOSS_RTOL, atol=0) and worst <= limit):
+            raise AssertionError(f"the {kind} step on the card disagrees with the CPU")
+        out[kind] = {"loss": (loss_c, loss_h), "param_diff": worst, "sign_flips": flips}
+    return out
+
+
+def make_a_student(teacher_decoder):
+    """(c) ``python -m scmgan_tpu_torch.cli.distill_student`` in its own
+    process: an h48 student from minipacman_cf, with its run record."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_student_")
+    argv = [sys.executable, "-m", "scmgan_tpu_torch.cli.distill_student",
+            *DISTILL_ARGV, *GATE_ARGV, "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [x for x in proc.stdout.splitlines() if x.startswith('{"run":')]
+    say(f"[distill] (c) {' '.join(argv[1:])}: exit {proc.returncode} in {wall:.3f} s")
+    if proc.returncode != 0 or len(lines) != 1:
+        say(proc.stdout[-3000:])
+        say(proc.stderr[-3000:])
+        raise AssertionError("python -m scmgan_tpu_torch.cli.distill_student failed")
+    run = json.loads(lines[0])["run"]
+    with open(os.path.join(out, "fidelity.json")) as f:
+        fid = json.load(f)
+    bce = np.asarray(run["bce"])
+    w = DISTILL_LOSS_WINDOW
+    say(f"[distill] (c) stage seconds {run['seconds']}; ms per iteration {run['ms_per_iter']}")
+    say(f"[distill] (c) BCE first {bce[:max(w, 1)].mean():.5f}, last {bce[-max(w, 1):].mean():.5f}"
+        f" (mean of {w}, held {'' if w else 'not '}falling); bit accuracy last "
+        f"{run['bit_acc'][-1]:.5f}; GT gate MSE first {run['gt_gate_mse'][0]:.6f} last "
+        f"{run['gt_gate_mse'][-1]:.6f}; the student's gate: mse10_delta_pct "
+        f"{fid['mse10_delta_pct']:.4f}, within_1pct {fid['within_1pct']}")
+    say(f"[distill] (c) launches by stage {run['launches']}")
+    losses = run["bce"] + run["bit_acc"] + run["gt_gate_mse"] + run["gt_mean_mse"]
+    if not (np.isfinite(losses).all() and len(run["bce"]) and len(run["gt_gate_mse"])):
+        raise AssertionError("the student's run has a non-finite or missing loss")
+    if w and not bce[-w:].mean() < bce[:w].mean():
+        raise AssertionError("the distillation's BCE did not fall")
+    for name in ("model-transition.npz", "model-decoder.npz", "fidelity.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"the student's {name} is missing")
+    written = load_pytree(os.path.join(out, "model-decoder.npz"), "cpu")
+    for path, leaf in flatten_tree(teacher_decoder):
+        if not np.array_equal(dict(flatten_tree(written))[path].numpy(), leaf.cpu().numpy()):
+            raise AssertionError(f"model-decoder.npz differs from the teacher's at {path}")
+    if fid["teacher_hash"] != ckpt.bundle_hash(BUNDLE):
+        raise AssertionError("fidelity.json records another teacher's hash")
+    zero = {k: 0 for k in counters()}
+    want = {"distill": zero, "gt_finetune": zero, "fidelity": gate_launches(1)}
+    if run["launches"] != want:
+        raise AssertionError(f"the student's run launched {run['launches']}, it implies {want}")
+    return {"run": run, "fidelity": fid, "wall": wall, "launches": add_launches(
+        *run["launches"].values())}
+
+
+@contextlib.contextmanager
+def pytorch_default_precision():
+    """PyTorch's default precision inside the block (cuDNN convs may use
+    TF32, matmuls may not), as the ``distill_student`` process runs; this
+    script's setting (no TF32) restored after it."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def profile_distill_steps(model, ds):
+    """(c') the three step kinds at the script's defaults (B = 16, rollout
+    20; GT B = 16, horizon 16) on a fresh h48 student in this process, at
+    PyTorch's default precision as the command runs them: ms per step (3
+    steps after one warm-up), the rollout's share, peak memory, and one
+    profiled step each (the card's busy share, time by kernel family)."""
+    b, t, horizon = (PROFILE_DISTILL[k] for k in ("batch", "rollout", "horizon"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = distill.DistillNoise(gen)
+    spec = ds.spec
+    student = init_transition(gen, model.encoder["conv4"]["w"].shape[-1], spec.num_actions,
+                              hidden=48)
+    act_scale = distill.calibration_scales(model, student, noise.calibration(ds),
+                                           spec.num_actions)
+    opt = distill.DistillOptimizer(student, DISTILL_LR, 100)
+    kinds = {   # (step, its arguments, the length of its rollout)
+        "distill": (distill.make_distill_step(spec, model, opt, b, t), (1.0,), t + 2),
+        "distill_qat": (distill.make_distill_step(spec, model, opt, b, t, qat=True),
+                        (1.0, act_scale), t + 2),
+        "gt_finetune": (distill.make_gt_finetune_step(spec, model, opt, b, horizon),
+                        (act_scale,), horizon + 3),
+    }
+    out = {}
+    for kind, (step, args, t_len) in kinds.items():
+        state = {"student": student}
+
+        def one():
+            state["student"] = step(state["student"], noise, *args)[0]
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        noise.rollout(spec, b, t_len)
+        torch.cuda.synchronize()
+        rollout_ms = (time.perf_counter() - t0) * 1e3
+        wall, busy, by_name = profile_device(one)
+        student = state["student"]
+        say(f"[distill] (c') {kind} step at full width, B={b}: {ms:.2f} ms a step, its "
+            f"rollout of {t_len} steps alone {rollout_ms:.2f} ms, peak {peak:.2f} GiB; "
+            f"profiled: {wall * 1e3:.2f} ms wall, the card busy {busy * 1e3:.2f} ms "
+            f"({100 * busy / wall:.1f}%)")
+        print_top_kernels(f"distill {kind}", by_name, busy, n=4)
+        out[kind] = {"ms": ms, "rollout_ms": rollout_ms, "peak_gib": peak,
+                     "busy_share": busy / wall}
+    return out
+
+
+def pretrained_snapshot():
+    return {os.path.join(d, f): (os.path.getsize(os.path.join(d, f)),
+                                 os.path.getmtime(os.path.join(d, f)))
+            for d in SHIPPED_STUDENTS for f in sorted(os.listdir(d))}
+
+
+def shipped_gates(model, ds, z, a):
+    """(d) ``--fidelity-only --eval-seeds 4`` on copies of the three shipped
+    students, in this process; each calibrated packing first held against the
+    plain int8 version.  Nothing is written under pretrained_models/."""
+    before = pretrained_snapshot()
+    records, totals = {}, []
+    for path in SHIPPED_STUDENTS:
+        name = path.split("/")[-1]
+        student = load_pytree(f"{path}/model-transition.npz", "cuda")
+        hidden = student["conv2"]["w"].shape[-1]
+        packed = calibrate_student(model, student, ds, 0).packed   # the gate's packing
+        check_int8(f"{name} calibrated", packed, z.to(torch.int8), a, "logit")
+        out = tempfile.mkdtemp(prefix=f"chip_smoke_gate_{name}_")
+        shutil.copytree(path, out, dirs_exist_ok=True)
+        argv = ["--env", ENV, "--teacher", BUNDLE, "--hidden", str(hidden), "--fidelity-only",
+                "--eval-seeds", str(GATE_SEEDS), *GATE_ARGV, "--out", out]
+        zero_counters()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = distill_student.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters()
+        totals.append(launches)
+        fid = res["fidelity"]
+        with open(f"{path}/fidelity.json") as f:
+            rec = json.load(f)
+        say(f"[distill] (d) {name}: 4-seed MSE@t+10 delta {fid['mse10_delta_pct']:+.2f} ± "
+            f"{fid['mse10_delta_se_pct']:.2f}% (per seed "
+            f"{', '.join(f'{d:+.2f}' for d in fid['mse10_delta_per_seed'])}), within_1pct "
+            f"{fid['within_1pct']}; record {rec['mse10_delta_pct']:+.2f} ± "
+            f"{rec['mse10_delta_se_pct']:.2f}%; {wall:.3f} s; launches {launches}")
+        records[name] = {k: fid[k] for k in ("mse10_delta_pct", "mse10_delta_se_pct",
+                                             "mse10_delta_per_seed", "within_1pct")}
+        records[name]["wall"] = wall
+        if launches != gate_launches(GATE_SEEDS):
+            raise AssertionError(f"{name}: launches {launches}, the gate implies "
+                                 f"{gate_launches(GATE_SEEDS)}")
+        if HOLD_GATE and not fid["within_1pct"]:
+            raise AssertionError(f"{name}: the port's gate fails the 1% limit")
+    if pretrained_snapshot() != before:
+        raise AssertionError("something was written under pretrained_models/")
+    return records, add_launches(*totals)
+
+
+# (e) the library ops: f32 matmuls and convs in other orders on the
+# two devices (TF32 off); the CSRN carries its state through 64 rows a sweep.
+LIBRARY_RTOL, LIBRARY_ATOL = 1e-4, 1e-5
+CSRN_CHANNELS = 32             # examples/csrn_demo.py's SimpleFCN
+
+
+def library_ops_on_card(z):
+    """(e) the CSRN, CoordConv, the gaussian smoothing, random_eps,
+    hypersphere_norm and cov on the card against the CPU: the CSRN and
+    CoordConv at examples/csrn_demo.py's size (1 x 64 x 64, 32 channels),
+    the rest on the latents ``z`` (B = 100, 64 x 64 x 16)."""
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.rand((1, 64, 64, CSRN_CHANNELS), generator=gen)
+    frames = torch.rand((4, 64, 64, 3), generator=gen)
+    u = torch.rand(z.shape, generator=gen)
+    cases = {
+        "csrn_apply": (lambda p, t: csrn.csrn_apply(p, t),
+                       csrn.csrn_init(gen, CSRN_CHANNELS, exploding_init=False), x),
+        "coordconv2d": (lambda p, t: coordconv.coordconv2d(p, t),
+                        coordconv.coordconv2d_init(gen, 3, CSRN_CHANNELS), frames),
+        "gaussian_smooth2d": (lambda p, t: smoothing.gaussian_smooth2d(t, 5, 1.0), {}, frames),
+        "random_eps": (lambda p, t: random_eps(p=0.3, u=t), {}, u),
+        "hypersphere_norm": (lambda p, t: hypersphere_norm(t), {}, z.cpu()),
+        "cov": (lambda p, t: stats.cov(t.reshape(t.shape[0], -1)[:, :256]), {}, z.cpu()),
+    }
+    errs, ms = {}, {}
+    with torch.inference_mode(), no_tf32():
+        for name, (fn, params, t) in cases.items():
+            want = fn(params, t)
+            pc, tc = to_device(params, "cuda"), t.cuda()
+            got = fn(pc, tc)
+            torch.cuda.synchronize()
+            errs[name] = float((got.cpu() - want).abs().max())
+            ms[name] = cuda_ms(lambda: fn(pc, tc), iters=3, warmup=1)
+            ok = bool(torch.allclose(got.cpu(), want, rtol=LIBRARY_RTOL, atol=LIBRARY_ATOL))
+            say(f"[distill] (e) {name} {tuple(t.shape)} card vs CPU: max |diff| "
+                f"{errs[name]:.3g} (rtol {LIBRARY_RTOL}, atol {LIBRARY_ATOL}); "
+                f"{ms[name]:.3f} ms per call")
+            if not ok:
+                raise AssertionError(f"{name} on the card disagrees with the CPU")
+        drawn = random_eps(torch.Generator(device="cuda").manual_seed(SEED), 0.3, *z.shape)
+        if drawn.shape != z.shape or abs(float(drawn.mean()) - 0.3) > 0.01:
+            raise AssertionError("random_eps drawn on the card is not Bernoulli(0.3)")
+    return {"max_abs_err": errs, "ms": ms}
+
+
+def distill_phase(model, student, qt, ds):
+    """Make a student: (a) the int8 variants and decoder on the card; (b) one
+    step of each kind card against CPU; (c) the command line that makes an
+    h48 student; (d) the shipped students' gates.  Returns the launches of
+    (c) and (d), and what each part measured."""
+    t_phase = time.perf_counter()
+    walls = {}
+    with torch.inference_mode():
+        obs = ds.collect(BATCH, 3, generator=torch.Generator(device="cuda").manual_seed(SEED))[0]
+        z = (encode(model.encoder, obs) > 0.5).to(torch.float32)
+    a = onehot_actions(np.random.default_rng(SEED + 3), BATCH, ds.binary_input_channels)
+    t0 = time.perf_counter()
+    variants = distill_variants(model, qt, z, a)
+    walls["variants"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = distill_steps_card_vs_cpu(model, student, ds)
+    walls["steps"] = time.perf_counter() - t0
+    made = make_a_student(model.decoder)
+    walls["make_a_student"] = made["wall"]
+    t0 = time.perf_counter()
+    with pytorch_default_precision():
+        profiled = profile_distill_steps(model, ds)
+    walls["profiled_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gates, gate_totals = shipped_gates(model, ds, z, a)
+    walls["shipped_gates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    library = library_ops_on_card(z)
+    walls["library_ops"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    say("[distill] wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return {"launches": add_launches(made["launches"], gate_totals), "walls": walls,
+            "variants": variants, "steps": steps, "student": made, "profiled": profiled,
+            "gates": gates, "library": library}
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -1944,7 +2413,11 @@ def main() -> int:
     t_err = max([t_err] + [c["t_err"] for c in zoo["checks"]])
     d_err = max([d_err] + zoo["d_errs"])
 
-    # 11. the kernels line.  launches: the sum over the main paths, each
+    # 11. the seventh main path: make a student
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    made = distill_phase(model, student, qt, ds)
+
+    # 12. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
@@ -1954,7 +2427,8 @@ def main() -> int:
                    "train": train_launches[counter],
                    **{path: n[counter] for path, n in mpc["launches"].items()},
                    "cli": cli_runs["launches"][counter],
-                   "zoo": zoo["launches"][counter]}
+                   "zoo": zoo["launches"][counter],
+                   "distill": made["launches"][counter]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,

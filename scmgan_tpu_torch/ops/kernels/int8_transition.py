@@ -155,15 +155,19 @@ def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
               tuple(pad_out(x) for x in scales["conv6"])]
     w1z = torch.cat([w[0], w[0].new_zeros(
         (9, _round_up(latent, UNIT) - latent, hidden))], 1)
+    # the kernel's weight layout exists for whole 16-channel units only; the
+    # plain version takes any width
+    kw = None if hidden % UNIT else (
+        [pack_kernel_weights(w1z, (w1z.shape[1],))]
+        + [pack_kernel_weights(x, (hidden,)) for x in w[1:4]]
+        + [pack_kernel_weights(x, (hidden, hidden)) for x in w[4:]])
     return {
         "order": order, "latent_dim": latent, "num_actions": num_actions,
         "hidden": hidden, "latent_pad": latent_pad,
         "w": w,
         # conv1's action half summed over the taps: (actions, hidden) int32
         "w1a": w1[:, latent:latent + num_actions].sum(0, dtype=torch.int32),
-        "kw": [pack_kernel_weights(w1z, (w1z.shape[1],))]
-              + [pack_kernel_weights(x, (hidden,)) for x in w[1:4]]
-              + [pack_kernel_weights(x, (hidden, hidden)) for x in w[4:]],
+        "kw": kw,
         "s": s,
         "b": [biases[f"conv{i}"].to(f32).contiguous() for i in range(1, 6)]
              + [pad_out(biases["conv6"])],
@@ -210,13 +214,23 @@ def pack_int8_weights(params: dict) -> dict:
 # the plain version
 # ---------------------------------------------------------------------------
 
+def int_sums(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> torch.Tensor:
+    """Exact int32 sums of the conv of integer-valued x (B, H, W, Cin) with an
+    int8 HWIO kernel, held in f64 (every |sum| < 2^53): VALID after a zero
+    pad of ``pad`` on each side; a negative ``pad`` crops the input instead
+    (the JAX module's ``_vconv``)."""
+    if pad < 0:
+        x = x[:, -pad:x.shape[1] + pad, -pad:x.shape[2] + pad]
+        pad = 0
+    return F.conv2d(x.to(torch.float64).permute(0, 3, 1, 2),
+                    w.to(torch.float64).permute(3, 2, 0, 1),
+                    padding=pad).permute(0, 2, 3, 1)
+
+
 def _int_conv(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
     """Exact int32 sums of the circular 3x3 conv of int8 x (B, H, W, Cin)
     with int8 w9 (9, Cin, Cout), held in f64."""
-    _, cin, cout = w9.shape
-    w = w9.to(torch.float64).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
-    xp = circular_pad(x.to(torch.float64), 1).permute(0, 3, 1, 2)
-    return F.conv2d(xp, w).permute(0, 2, 3, 1)
+    return int_sums(circular_pad(x, 1), w9.reshape(3, 3, *w9.shape[1:]))
 
 
 def _action_bias(packed: dict, action_onehot: torch.Tensor) -> torch.Tensor:

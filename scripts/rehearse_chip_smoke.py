@@ -7,6 +7,7 @@
     python3 scripts/rehearse_chip_smoke.py --mpc-only    # phase 8 alone
     python3 scripts/rehearse_chip_smoke.py --cli-only    # phase 9 alone
     python3 scripts/rehearse_chip_smoke.py --zoo-only    # phase 10 alone
+    python3 scripts/rehearse_chip_smoke.py --distill-only  # phase 11 alone
 
 The script's control flow, shapes and checks run with every CUDA call
 mapped to the CPU: ``torch.Generator(device="cuda")`` and
@@ -19,7 +20,10 @@ device on the CPU, is skipped.  Batches and the trained model are shrunk
 on a shallow beam, so its score floor is not held; the command-line phase
 runs its Config shrunk the same way (the trained model at ``--hidden``, the
 shipped bundles at their width), one causal run, 20 Higgins iterations,
-and its subprocess with ``--platform cpu``.  Every time it prints is a CPU time or a stub,
+and its subprocess with ``--platform cpu``; the student-making phase runs
+its ``distill_student`` process in this one (so that its launches are
+counted) at 4 iterations, B = 2, a B = 4 x 14 gate, without holding the
+falling BCE or the gates.  Every time it prints is a CPU time or a stub,
 never a card's.  It finds faults of control flow before a card is used;
 the numbers of the checks (losses, curves, round trips) are the CPU's.
 """
@@ -27,6 +31,8 @@ the numbers of the checks (losses, curves, round trips) are the CPU's.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import os
 import pathlib
 import subprocess
@@ -83,6 +89,8 @@ def main() -> int:
                     help="run phase 9 (the command line) alone")
     ap.add_argument("--zoo-only", action="store_true",
                     help="run phase 10 (the env zoo and its bundles) alone")
+    ap.add_argument("--distill-only", action="store_true",
+                    help="run phase 11 (making a student) alone")
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
@@ -91,6 +99,7 @@ def main() -> int:
     import chip_smoke as cs
     from scmgan_tpu_torch.agent import mpc, oracle
     from scmgan_tpu_torch.analysis import mse
+    from scmgan_tpu_torch.cli import distill_student
     from scmgan_tpu_torch.cli import main as cli
     from scmgan_tpu_torch.data import datasource
     from scmgan_tpu_torch.models import quantized
@@ -128,8 +137,25 @@ def main() -> int:
     cli_main = cli.main
     cli.main = lambda argv: cli_main(argv + ["--causal-runs", "1", "--higgins-iters", "20"])
     run = subprocess.run
-    cs.subprocess = types.SimpleNamespace(
-        run=lambda argv, **kw: run(list(argv) + ["--platform", "cpu"], **kw))
+
+    def run_on_cpu(argv, **kw):
+        argv = list(argv)
+        if argv[1:3] == ["-m", "scmgan_tpu_torch.cli.distill_student"]:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                distill_student.main(argv[3:] + ["--platform", "cpu"])
+            return types.SimpleNamespace(returncode=0, stdout=out.getvalue(), stderr="")
+        return run(argv + ["--platform", "cpu"], **kw)
+
+    cs.subprocess = types.SimpleNamespace(run=run_on_cpu)
+    cs.DISTILL_ARGV = ["--env", cs.ENV, "--teacher", cs.BUNDLE, "--hidden", "48",
+                       "--iters", "4", "--qat-from", "0.5", "--qat-recal", "1",
+                       "--gt-iters", "2", "--gt-horizon", "12", "--batch-size", "2",
+                       "--rollout", "3", "--gt-batch-size", "2", "--eval-seeds", "1"]
+    cs.GATE_ARGV = ["--eval-batch-size", "4", "--eval-timesteps", "14"]
+    cs.GATE_TIMESTEPS = 14
+    cs.DISTILL_LOSS_WINDOW, cs.HOLD_GATE = 0, False
+    cs.PROFILE_DISTILL = {"batch": 2, "rollout": 3, "horizon": 12}
 
     t0 = time.perf_counter()
     if args.train_only:
@@ -146,6 +172,14 @@ def main() -> int:
     elif args.zoo_only:
         torch.cuda.is_available = lambda: True
         print("launches", cs.zoo_phase()["launches"])
+        rc = 0
+    elif args.distill_only:
+        torch.cuda.is_available = lambda: True
+        model = cs.load_model(cs.BUNDLE, device="cuda")
+        student = cs.load_pytree(f"{cs.STUDENT}/model-transition.npz", "cuda")
+        ds = datasource.allocate_datasource(cs.ENV, seed=cs.SEED, device="cpu")
+        qt = cs.calibrate_student(model, student, ds, cs.SEED)
+        print("launches", cs.distill_phase(model, student, qt, ds)["launches"])
         rc = 0
     else:
         torch.cuda.is_available = lambda: True
