@@ -130,13 +130,38 @@ Phases:
      beside each record, nothing written under pretrained_models/;
      (e) the library ops (CSRN, CoordConv, smoothing, random_eps,
      hypersphere_norm, cov) card against CPU;
-  12. a ``kernels`` JSON line (launches summed over the main paths), the
+  12. the eighth main path, the host data path (``replay_phase``): (a) the
+     native C library (stitcher, AVI writer) built with ``cc`` from the
+     checkout's sources, timed in a fresh directory; (b) actors playing the
+     port's minipacman on the host (``HostEnv`` on the CPU, a seeded random
+     policy) into a ``HostReplayDatasource`` (capacity 50, episodes up to
+     150 steps), episodes/s and frames/s over a fixed window with 1 and 2
+     actors; (c) on a snapshot of the buffers, ``collect(32, 10)`` and
+     ``collect(100, 100, training=False)`` on the card bit-equal to
+     ``get_trajectories`` of the same seed moved NHWC, every stitched clip a
+     run of one stored episode with its done at the end, ms per batch of the
+     native stitcher, the plain Python loop and the copy to the card;
+     (d) ``trainer.train`` from the buffer as phase 6 runs it (24
+     iterations, B = 32, horizon 3 -> 10) with the actors playing: ms per
+     iteration beside phase 6's, peak memory, finite and falling losses,
+     the evaluation hook (test split, B = 100 x 30) held to 29 / 28 / 0
+     launches and its first steps to the plain path, one profiled iteration
+     (busy share, the host's stitch and copy shares); (e) the minipacman_cf
+     free-run on the test split at B = 100 x 100, held to 99 / 98 / 0
+     launches and the plain path, its curves beside phase 4's; (f) a video
+     written as an uncompressed AVI (RIFF header, frame count) and phase
+     9's evaluation videos held to ``.avi``; (g) the host backends of the
+     machine: without gym, the ImportError each of gym:CarRacing-v3, atari
+     and centipede raises, and sc2_star_intruders' env constructor's (with
+     gym, a CarRacing collect and one train step on the card); (h) no actor
+     thread alive after ``close()``;
+  13. a ``kernels`` JSON line (launches summed over the main paths), the
      card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
 A watchdog ends a hang with a traceback and a non-zero exit (armed for
-phases 1-8, and again for phases 9, 10 and 11).
+phases 1-8, and again for phases 9, 10, 11 and 12).
 """
 
 from __future__ import annotations
@@ -145,12 +170,15 @@ import contextlib
 import faulthandler
 import inspect
 import io
+import itertools
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -169,11 +197,15 @@ from scmgan_tpu_torch.agent.play import play
 from scmgan_tpu_torch.agent.play_device import _episode_chunk, play_on_device
 from scmgan_tpu_torch.analysis import excitation_bptt, visualize
 from scmgan_tpu_torch.analysis.mse import _free_run_stats, measure_prediction_mse
+from scmgan_tpu_torch.analysis.video import Video
 from scmgan_tpu_torch.cli import distill_student
 from scmgan_tpu_torch.cli import main as cli
 from scmgan_tpu_torch.config import Config
+from scmgan_tpu_torch import native
 from scmgan_tpu_torch.data.datasource import allocate_datasource
-from scmgan_tpu_torch.envs import get_env, rollout
+from scmgan_tpu_torch.data.replay import HostReplayDatasource, to_device_batch
+from scmgan_tpu_torch.envs import HostEnv, get_env, rollout
+from scmgan_tpu_torch.envs.host.gym_compat import import_gym
 from scmgan_tpu_torch.envs.boxes import rotbox_crosses
 from scmgan_tpu_torch.models.quantized import (
     decode_int8,
@@ -653,7 +685,7 @@ def grad_norms(state) -> dict:
 def train_phase(ds, latent):
     """The third main path: ``trainer.train`` at full width on the card, then
     the checks of the training arithmetic.  Returns the kernels' launch
-    counts of the ``train`` run."""
+    counts of the ``train`` run and its mean ms per iteration by horizon."""
     num_actions = ds.binary_input_channels
     bf16 = torch.bfloat16
     cfg = Config(env=ENV, seed=SEED, train_iters=TRAIN_ITERS, iters_per_video=TRAIN_ITERS,
@@ -854,7 +886,7 @@ def train_phase(ds, latent):
         f"under the profiler: {1e3 * wall:.2f} ms wall, card busy {1e3 * busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), {len(by_name)} kernel names")
     print_top_kernels("train", by_name, busy, n=12)
-    return launches
+    return launches, {h: float(np.mean(v)) for h, v in by_h.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1117,6 +1149,8 @@ def mpc_phase():
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLI_TRAIN_ITERS, CLI_ITERS_PER_VIDEO = 12, 10
+# The evaluation's videos (analysis/evaluate.py), by name.
+VIDEO_PREFIXES = ("simulation_ftr_", "prediction_", "reward_prediction_")
 CLI_GRID_EPISODES = 3
 HIGGINS_RECORD = "docs/higgins_zoo.json"
 REFERENCE_BUNDLE = "pretrained_models/reference_ab_gridworld"
@@ -1335,6 +1369,7 @@ def cli_phase():
               f"reward_prediction_01_{it}", f"reward_prediction_03_{it}"]
     missing = [w for w in wanted if not any(f.startswith(w) for f in written)]
     say(f"[cli] (a) wrote {written}")
+    videos = [f for f in written if f.startswith(VIDEO_PREFIXES)]
     if missing or len(saved) != n_evals:
         raise AssertionError(f"cli (a): missing artifacts {missing}")
 
@@ -1469,7 +1504,8 @@ def cli_phase():
         raise AssertionError("python -m scmgan_tpu_torch failed")
     say("[cli] wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
     return {"launches": add_launches(*totals), "walls": walls, "checks": checks,
-            "d_errs": d_errs, "int8_checks": int8_checks}
+            "d_errs": d_errs, "int8_checks": int8_checks,
+            "videos": videos}
 
 # ---------------------------------------------------------------------------
 # the env zoo and the shipped 64x64 bundles of its envs
@@ -2126,6 +2162,482 @@ def distill_phase(model, student, qt, ds):
             "gates": gates, "library": library}
 
 # ---------------------------------------------------------------------------
+# the host data path: actors play minipacman on the host into a replay buffer
+# ---------------------------------------------------------------------------
+
+REPLAY_CAPACITY, REPLAY_MAX_LEN, REPLAY_MIN = 50, 150, 4
+REPLAY_INGEST_S = 3.0        # the ingest window for 1 and for 2 actors
+REPLAY_ACTORS = 2            # the datasource that trains and serves
+# (batch, timesteps, training): a training batch and the free-run's test batch
+REPLAY_BATCHES = ((32, 10, True), (BATCH, TIMESTEPS, False))
+REPLAY_STITCH_REPEATS, REPLAY_PLAIN_REPEATS, REPLAY_COPY_REPEATS = 5, 2, 5
+REPLAY_VIDEO_FRAMES = 20
+REPLAY_CURVE_STEPS = (1, 3, 5, 10, 20, 50)   # free-run horizons printed beside phase 4's
+
+
+def replay_datasource(n_actors: int, seed: int):
+    """A HostReplayDatasource whose actors play the port's minipacman on the
+    host (``HostEnv`` on the CPU: 64x64x3 frames, 5 actions, 2 rewards), HWC
+    frames stored channels-first, under a seeded random policy (``HostEnv``
+    has no ``action_space``).  Test harness, not a datasource of the package."""
+    spec = get_env(ENV)
+    envs = itertools.count()
+    rng = np.random.default_rng(seed)
+
+    def make_env(*args, **kwargs):
+        return HostEnv(spec, seed=seed + next(envs), device="cpu")
+
+    return HostReplayDatasource(
+        make_env, num_actions=spec.num_actions, num_rewards=spec.num_rewards,
+        channels=spec.channels, convert_frame=lambda s: np.moveaxis(s, -1, 0),
+        min_buffer_len=REPLAY_MIN, capacity=REPLAY_CAPACITY,
+        max_trajectory_len=REPLAY_MAX_LEN, seed=seed,
+        policy=lambda state: int(rng.integers(spec.num_actions)),
+        name=ENV, height=spec.height, width=spec.width, n_actors=n_actors, device="cuda")
+
+
+def ingest(ds, window: float) -> dict:
+    """Start the actors and count the episodes and frames that land in the
+    buffer over ``window`` seconds (env construction included)."""
+    frames = [0]
+    add = ds.buffer.add
+
+    def counting(episode):
+        frames[0] += len(episode[0])
+        add(episode)
+
+    ds.buffer.add = counting
+    t0 = time.perf_counter()
+    ds._ensure_started()
+    time.sleep(window)
+    episodes, n = ds.buffer.version, frames[0]
+    dt = time.perf_counter() - t0
+    return {"episodes": episodes, "frames": n, "s": dt, "episodes_per_s": episodes / dt,
+            "frames_per_s": n / dt}
+
+
+def frozen_copy(ds):
+    """A datasource over a snapshot of ``ds``'s buffers (taken under its lock),
+    with no actor: its batches do not move while ``ds``'s actors play."""
+    snap = HostReplayDatasource(
+        ds.make_env, num_actions=ds.binary_input_channels,
+        num_rewards=ds.scalar_output_channels, channels=ds.conv_input_channels,
+        min_buffer_len=1, capacity=ds.buffer.capacity,
+        max_trajectory_len=ds.actor.max_trajectory_len, seed=SEED, name=ds.name,
+        height=ds.height, width=ds.width, device=ds.device)
+    snap._ensure_started = lambda: None
+    src, dst = ds.buffer, snap.buffer
+    with src._lock:
+        dst._train, dst._test = list(src._train), list(src._test)
+        dst._train_slot_versions = list(src._train_slot_versions)
+        dst._test_slot_versions = list(src._test_slot_versions)
+    return snap
+
+
+def check_clips(ds, batch, training: bool) -> int:
+    """Every stitched clip (the steps up to and including each done) is a
+    run of consecutive steps of one stored episode, ending before its last
+    step, with its rewards and actions; returns the number of clips."""
+    states, rewards, dones, actions = batch
+    eps = ds.buffer._train if training else ds.buffer._test
+    index = {}
+    for e, (frames, _, _) in enumerate(eps):
+        for s in range(len(frames) - 1):
+            index.setdefault(frames[s].tobytes(), []).append((e, s))
+    n_clips = 0
+    for b in range(states.shape[0]):
+        t = 0
+        for end in np.flatnonzero(dones[b]):
+            n = end + 1 - t
+            if not any(s + n <= len(eps[e][0]) - 1
+                       and np.array_equal(eps[e][0][s:s + n], states[b, t:end + 1])
+                       and np.array_equal(eps[e][1][s:s + n], rewards[b, t:end + 1])
+                       and np.array_equal(eps[e][2][s:s + n], actions[b, t:end + 1])
+                       for e, s in index.get(states[b, t].tobytes(), ())):
+                raise AssertionError(f"stitched clip row {b} steps {t}..{end} is not a "
+                                     "run of one stored episode")
+            n_clips += 1
+            t = end + 1
+        if t != states.shape[1]:
+            raise AssertionError(f"row {b} does not end with a done")
+    return n_clips
+
+
+def host_ms(fn, repeats: int) -> float:
+    """Median host milliseconds of ``fn`` over ``repeats`` calls, after one."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def copy_ms(host_batch) -> float:
+    """Milliseconds to move a stitched batch to the card, NHWC, synchronized."""
+    def move():
+        to_device_batch(*host_batch, "cuda")
+        torch.cuda.synchronize()
+    return host_ms(move, REPLAY_COPY_REPEATS)
+
+
+def replay_batches(ds) -> dict:
+    """(c): collect on the card bit-equal to get_trajectories of the same
+    seed, the clips' structure, and the stitch and copy times."""
+    snap = frozen_copy(ds)
+    out = {}
+    for b, t, training in REPLAY_BATCHES:
+        got = snap.collect(b, t, generator=torch.Generator(device="cuda").manual_seed(SEED + 30),
+                           training=training)
+        again = torch.Generator(device="cuda").manual_seed(SEED + 30)
+        draw = torch.randint(0, 2 ** 63 - 1, (1,), device=again.device, generator=again)
+        snap._rng = np.random.default_rng(int(draw))
+        host = snap.get_trajectories(b, t, training=training)
+        want = (np.moveaxis(host[0], 2, -1), host[1], host[2], host[3].astype(np.int64))
+        for g, w in zip(got, want):
+            if not (g.device.type == snap.device.type and g.is_contiguous()
+                    and torch.equal(g.cpu(), torch.from_numpy(np.ascontiguousarray(w)))):
+                raise AssertionError(f"collect({b}, {t}) differs from get_trajectories")
+        n_clips = check_clips(snap, host, training)
+        row = {"mb": host[0].nbytes / 1e6, "clips": n_clips,
+               "stitch_ms": host_ms(lambda: snap.get_trajectories(b, t, training=training),
+                                    REPLAY_STITCH_REPEATS),
+               "plain_ms": host_ms(lambda: snap.get_trajectories_plain(b, t, training=training),
+                                   REPLAY_PLAIN_REPEATS),
+               "copy_ms": copy_ms(host)}
+        out[(b, t)] = row
+        say(f"[replay] (c) collect({b}, {t}, training={training}) on the card bit-equal to "
+            f"get_trajectories of the same seed, NHWC; {n_clips} clips, each a run of one "
+            f"stored episode with done at its end; states {row['mb']:.1f} MB f32: native "
+            f"stitch {row['stitch_ms']:.3f} ms, plain Python loop {row['plain_ms']:.3f} ms, "
+            f"copy to the card (channels moved last there) {row['copy_ms']:.3f} ms")
+    return out
+
+
+def replay_train(ds, latent, phase6_ms) -> dict:
+    """(d): ``trainer.train`` from the buffer at full width, its evaluation
+    hook on the test split through the kernels, one profiled iteration."""
+    num_actions = ds.binary_input_channels
+    bf16 = torch.bfloat16
+    cfg = Config(env=ENV, seed=SEED, train_iters=TRAIN_ITERS, iters_per_video=TRAIN_ITERS,
+                 enable_disentanglement_loss=True, enable_action_control_loss=True,
+                 counterfactual_horizon=2, eval_batch_size=BATCH,
+                 eval_timesteps=TRAIN_EVAL_TIMESTEPS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = trainer.init_train_state(cfg, ds.spec, gen)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_replay_")
+    rows, hook, clock = [], {}, {}
+
+    def eval_fn(st, it):
+        collect = ds.collect
+
+        def keep(*args, **kwargs):
+            hook["batch"] = collect(*args, **kwargs)
+            return hook["batch"]
+
+        ds.collect = keep
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            hook["result"] = measure_prediction_mse(
+                st.params, ds, train_iter=it, batch_size=cfg.eval_batch_size,
+                timesteps=cfg.eval_timesteps, use_training_set=False, out_dir=out_dir,
+                make_plots=False, generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+        finally:
+            del ds.collect
+        torch.cuda.synchronize()
+        hook["s"] = time.perf_counter() - t0
+        hook["params"] = copy_params(st.params, "cuda")
+
+    def log_fn(it, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append({"iter": it, "horizon": trainer.horizon_at(cfg, it),
+                     "ms": 1e3 * (now - clock["t"]), **{k: float(v) for k, v in metrics.items()}})
+        clock["t"] = now
+
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = clock["t"] = time.perf_counter()
+    state = trainer.train(cfg, ds, state, eval_fn=eval_fn, log_fn=log_fn, generator=gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    rows[-1]["ms_without_eval"] = rows[-1]["ms"] - 1e3 * hook["s"]
+    by_h = {}
+    for r in rows:
+        r["rec_per_step"] = r["reconstruction_loss"] / (r["horizon"] - 2)
+        by_h.setdefault(r["horizon"], []).append(r.get("ms_without_eval", r["ms"]))
+    say("[replay] (d) mean ms per iteration by horizon, replay buffer (collect included) / "
+        "phase 6's device env: " + ", ".join(
+            f"h{h} {np.mean(v):.2f} / " + (f"{phase6_ms[h]:.2f}" if h in phase6_ms else "-")
+            for h, v in sorted(by_h.items())))
+    say(f"[replay] (d) train() {train_s:.3f} s wall for {len(rows)} iterations, the actors "
+        f"playing; peak device memory {peak / 2**30:.3f} GiB; evaluation hook (test split, "
+        f"B = {cfg.eval_batch_size} x {cfg.eval_timesteps}) {hook['s']:.3f} s; launches "
+        f"{launches}")
+    if launches != {"fused_transition": TRAIN_EVAL_TIMESTEPS - 1,
+                    "fused_decode": TRAIN_EVAL_TIMESTEPS - 2, "int8_transition": 0}:
+        raise AssertionError(f"the replay evaluation did not run the kernels: {launches}")
+    keys = ("loss", "reward_loss", "reconstruction_loss", "cf_disentanglement_loss",
+            "cf_control_loss")
+    if not np.isfinite([[r[k] for k in keys] for r in rows]).all():
+        raise AssertionError("a training loss from the replay buffer is not finite")
+    first = np.mean([r["rec_per_step"] for r in rows[:4]])
+    last = np.mean([r["rec_per_step"] for r in rows[-4:]])
+    say(f"[replay] (d) reconstruction loss per step: first 4 iterations {first:.6f}, last 4 "
+        f"{last:.6f} ({100 * (last - first) / first:+.1f}%); loss first {rows[0]['loss']:.6f} "
+        f"last {rows[-1]['loss']:.6f}")
+    if not last < first:
+        raise AssertionError("the reconstruction loss from the replay buffer did not fall")
+    result = hook["result"]
+    if result is None or not np.isfinite(np.asarray(result)).all():
+        raise AssertionError("degenerate or non-finite replay evaluation")
+    curve = np.asarray(result[0])
+    if len(curve) < COMPARE_STEPS:
+        raise AssertionError(f"replay evaluation curve cut at {len(curve)} steps")
+    snap = hook["params"]
+    with torch.inference_mode():
+        short = tuple(x[:, :COMPARE_STEPS + 2] for x in hook["batch"])
+        pt = pack_transition_weights(snap.transition, latent, num_actions)
+        pd = pack_decoder_weights(snap.decoder, latent)
+        plain = _free_run_stats(
+            snap, short, num_actions,
+            transition_fn=lambda z, a: transition_plain(pt, z, a, dtype=bf16),
+            decode_fn=lambda z: decode_plain(pd, z, dtype=bf16))[0].cpu().numpy()
+    say(f"[replay] (d) evaluation pixel MSE, first {COMPARE_STEPS} steps: kernels "
+        f"{np.array2string(curve[:COMPARE_STEPS], precision=6)}")
+    say(f"[replay] (d)                                        plain   "
+        f"{np.array2string(plain, precision=6)}")
+    if not np.allclose(curve[:COMPARE_STEPS], plain, rtol=CURVE_RTOL, atol=CURVE_ATOL):
+        raise AssertionError("the replay evaluation's curve disagrees with the plain path")
+
+    # one iteration as the trainer runs it (stitch, copy, step) under the profiler
+    step = trainer.make_train_step(cfg, cfg.horizon_max)
+    holder, parts = {"state": state}, {}
+
+    def one_iteration():
+        t0 = time.perf_counter()
+        host = ds.get_trajectories(cfg.batch_size, cfg.horizon_max)
+        t1 = time.perf_counter()
+        batch = to_device_batch(*host, ds.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        holder["state"] = step(holder["state"], batch, LossNoise(gen), 1.0, 1.0)[0]
+        parts["stitch"], parts["copy"] = t1 - t0, t2 - t1
+
+    one_iteration()
+    wall, busy, by_name = profile_device(one_iteration)
+    say(f"[replay] (d) one iteration at horizon {cfg.horizon_max}, B = {cfg.batch_size}, CF "
+        f"on, under the profiler: {1e3 * wall:.2f} ms wall, card busy {1e3 * busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%); host stitch {1e3 * parts['stitch']:.3f} ms "
+        f"({100 * parts['stitch'] / wall:.1f}%), copy {1e3 * parts['copy']:.3f} ms "
+        f"({100 * parts['copy'] / wall:.1f}%)")
+    print_top_kernels("replay", by_name, busy, n=6)
+    return {"launches": launches, "ms_by_horizon": {h: float(np.mean(v)) for h, v in by_h.items()},
+            "peak_gib": peak / 2**30, "rec": (first, last), "busy": busy / wall,
+            "stitch_share": parts["stitch"] / wall, "copy_share": parts["copy"] / wall}
+
+
+def replay_free_run(ds, model, latent, phase4) -> dict:
+    """(e): the shipped bundle's free-run on the test split, launches held,
+    the first steps against the plain path, the curves beside phase 4's."""
+    num_actions = ds.binary_input_channels
+    bf16 = torch.bfloat16
+    kept = {}
+    collect = ds.collect
+
+    def keep(*args, **kwargs):
+        kept["batch"] = collect(*args, **kwargs)
+        return kept["batch"]
+
+    ds.collect = keep
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = measure_prediction_mse(
+            model, ds, batch_size=BATCH, timesteps=TIMESTEPS, use_training_set=False,
+            make_plots=False, out_dir=tempfile.mkdtemp(prefix="chip_smoke_replay_mse_"),
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 40))
+    finally:
+        del ds.collect
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    say(f"[replay] (e) measure_prediction_mse of {BUNDLE} on the test split, B={BATCH} "
+        f"T={TIMESTEPS}: {wall:.3f} s wall (stitch and copy included); launches {launches}")
+    if launches != {"fused_transition": TIMESTEPS - 1, "fused_decode": TIMESTEPS - 2,
+                    "int8_transition": 0}:
+        raise AssertionError(f"the replay free-run did not run the kernels: {launches}")
+    if result is None or not np.isfinite(np.asarray(result)).all():
+        raise AssertionError("degenerate or non-finite replay free-run")
+    mse, _, rew, _ = result
+    if len(mse) < COMPARE_STEPS:
+        raise AssertionError(f"replay free-run curve cut at {len(mse)} steps")
+    pt = pack_transition_weights(model.transition, latent, num_actions)
+    pd = pack_decoder_weights(model.decoder, latent)
+    with torch.inference_mode():
+        short = tuple(x[:, :COMPARE_STEPS + 2] for x in kept["batch"])
+        plain = _free_run_stats(
+            model, short, num_actions,
+            transition_fn=lambda z, a: transition_plain(pt, z, a, dtype=bf16),
+            decode_fn=lambda z: decode_plain(pd, z, dtype=bf16))[0].cpu().numpy()
+    curve = np.asarray(mse[:COMPARE_STEPS])
+    say(f"[replay] (e) pixel MSE, first {COMPARE_STEPS} steps: kernels "
+        f"{np.array2string(curve, precision=6)}")
+    say(f"[replay] (e)                             plain   "
+        f"{np.array2string(plain, precision=6)}")
+    if not np.allclose(curve, plain, rtol=CURVE_RTOL, atol=CURVE_ATOL):
+        raise AssertionError("the replay free-run's curve disagrees with the plain path")
+    dones = kept["batch"][2].float().mean().item()
+    say(f"[replay] (e) curve length {len(mse)} (cut where every row has met a done; "
+        f"{100 * dones:.1f}% of the batch's steps are dones)")
+    for name, ours, theirs in (("pixel", mse, phase4[0]), ("reward", rew, phase4[1])):
+        say(f"[replay] (e) {name} MSE at t+k, replay test split / phase 4's device-env "
+            "batch: " + ", ".join(
+                f"t+{k} {ours[k - 1]:.6g} / {theirs[k - 1]:.6g}"
+                for k in REPLAY_CURVE_STEPS if k <= min(len(ours), len(theirs))))
+    return {"launches": launches, "wall": wall, "batch": kept["batch"]}
+
+
+def check_avi(path: str, n_frames: int, height: int, width: int):
+    data = open(path, "rb").read()
+    if not (path.endswith(".avi") and data[:4] == b"RIFF" and data[8:12] == b"AVI "
+            and int.from_bytes(data[4:8], "little") == len(data) - 8):
+        raise AssertionError(f"{path} is not an uncompressed AVI")
+    avih = data.index(b"avih") + 8
+    frames, w, h = (int.from_bytes(data[avih + o:avih + o + 4], "little")
+                    for o in (16, 32, 36))
+    chunks = data.count(b"00db")
+    if (frames, w, h) != (n_frames, width, height) or chunks < 2 * n_frames:
+        raise AssertionError(f"{path}: {frames} frames {w}x{h}, {chunks} chunks; expected "
+                             f"{n_frames} frames {width}x{height}")
+    return len(data)
+
+
+def replay_backends():
+    """(g): the host backends on this machine: allocation raises where a
+    backend is absent (SC2 allocates and its env constructor raises, as in
+    the JAX package); where gym imports, a CarRacing collect and one train
+    step on the card."""
+    try:
+        import_gym()
+        gym_error = None
+    except ImportError as e:
+        gym_error = e
+        say(f"[replay] (g) import_gym() raised ImportError: {e}")
+    for name in ("gym:CarRacing-v3", "atari", "centipede", "sc2_star_intruders"):
+        try:
+            ds = allocate_datasource(name, seed=SEED, device="cuda")
+        except ImportError as e:
+            say(f"[replay] (g) allocate_datasource({name!r}) raised ImportError: {e}")
+            continue
+        try:
+            if name.startswith("sc2_"):
+                try:
+                    ds.make_env()
+                except ImportError as e:
+                    say(f"[replay] (g) allocate_datasource({name!r}) allocates; its env "
+                        f"constructor raised ImportError: {e}")
+                else:
+                    raise AssertionError("an SC2 env was constructed")
+            elif gym_error is not None:
+                raise AssertionError(f"{name} allocated with no gym backend")
+            elif name.startswith("gym:"):
+                cfg = Config(env=name, seed=SEED, batch_size=4, horizon_min=3, horizon_max=3)
+                gen = torch.Generator(device="cuda").manual_seed(SEED)
+                st = trainer.init_train_state(cfg, ds.spec, gen)
+                batch = ds.collect(cfg.batch_size, 3, generator=gen)
+                st, m = trainer.make_train_step(cfg, 3)(st, batch, LossNoise(gen), 0.5, 0.0)
+                say(f"[replay] (g) {name}: collect {tuple(batch[0].shape)} on the card, one "
+                    f"train step loss {float(m['loss']):.6f}")
+                if not np.isfinite(float(m["loss"])):
+                    raise AssertionError(f"{name}: train step loss not finite")
+            else:
+                say(f"[replay] (g) {name} allocated (its backend is installed)")
+        finally:
+            ds.close()
+
+
+def replay_phase(model, latent, phase4, phase6_ms, cli_videos) -> dict:
+    """The eighth main path: a host actor's replay buffer feeds training and
+    the free-run on the card.  Returns the kernels' launch counts of (d) and
+    (e) and the phase's numbers."""
+    t_phase = time.perf_counter()
+    # (a) the native library, built from the checkout's sources into a fresh
+    # directory so that the build is timed whatever ran before
+    build_dir = native.BUILD_DIR
+    native.BUILD_DIR = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_native_"))
+    try:
+        t0 = time.perf_counter()
+        fresh = native.build()
+        native_s = time.perf_counter() - t0
+    finally:
+        native.BUILD_DIR = build_dir
+    say(f"[replay] (a) {native.compiler()}: {fresh.name} ({fresh.stat().st_size} B) built "
+        f"in {native_s:.3f} s; loaded: {pathlib.Path(native.library()._name).name}")
+
+    # (b) ingest with 1 actor, then the datasource of the rest with 2
+    one = replay_datasource(1, SEED + 50)
+    try:
+        rate1 = ingest(one, REPLAY_INGEST_S)
+    finally:
+        one.close()
+    ds = replay_datasource(REPLAY_ACTORS, SEED + 60)
+    try:
+        rate2 = ingest(ds, REPLAY_INGEST_S)
+        for n, r in ((1, rate1), (REPLAY_ACTORS, rate2)):
+            say(f"[replay] (b) {n} actor(s) playing {ENV} on the host: {r['episodes']} "
+                f"episodes, {r['frames']} frames in {r['s']:.3f} s: "
+                f"{r['episodes_per_s']:.2f} episodes/s, {r['frames_per_s']:.1f} frames/s")
+        if rate1["episodes"] < 1 or rate2["episodes"] < 1:
+            raise AssertionError("no episode reached the replay buffer")
+        ds.collect(1, 2, training=False)     # waits for both splits to fill
+        say(f"[replay] (b) buffer: {ds.buffer.size(True)} train / {ds.buffer.size(False)} "
+            f"test episodes")
+
+        # (c) batches
+        batches = replay_batches(ds)
+
+        # (d) training from the buffer, the actors playing
+        trained = replay_train(ds, latent, phase6_ms)
+
+        # (e) the shipped bundle on the test split
+        served = replay_free_run(ds, model, latent, phase4)
+
+        # (f) videos: the native AVI writer on this machine
+        frames = served["batch"][0][0, :REPLAY_VIDEO_FRAMES].cpu().numpy()
+        vid = Video(os.path.join(tempfile.mkdtemp(prefix="chip_smoke_avi_"), "replay.mp4"))
+        for f in frames:
+            vid.write_frame(f, resize_to=(128, 128))
+        path = vid.finish()
+        size = check_avi(path, len(frames), 128, 128)
+        say(f"[replay] (f) Video.finish wrote {os.path.basename(path)}: {size} B, RIFF/AVI, "
+            f"{len(frames)} frames 128x128; phase 9's evaluation videos: {cli_videos}")
+        if not cli_videos or not all(v.endswith(".avi") for v in cli_videos):
+            raise AssertionError(f"phase 9's videos are not .avi files: {cli_videos}")
+
+        # (g) the host backends of this machine
+        replay_backends()
+    finally:
+        # (h) shutdown
+        ds.close()
+    alive = [a for a in ds.actors + one.actors if a.is_alive()]
+    threads = [t.name for t in threading.enumerate() if t.name.endswith("(_run)")]
+    say(f"[replay] (h) close(): {len(alive)} actors alive, actor threads left {threads}")
+    if alive or threads:
+        raise AssertionError("an actor thread outlived close()")
+    wall = time.perf_counter() - t_phase
+    say(f"[replay] phase wall {wall:.3f} s")
+    return {"launches": add_launches(trained["launches"], served["launches"]),
+            "ingest": (rate1, rate2), "batches": batches, "train": trained,
+            "native_build_s": native_s, "wall": wall}
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -2341,7 +2853,7 @@ def main() -> int:
 
     # 6. the third main path: training at full width, its evaluation hook
     # through the kernels, and the checks of the training arithmetic
-    train_launches = train_phase(ds, latent)
+    train_launches, train_ms = train_phase(ds, latent)
 
     # 7. times at the main paths' shapes (B = 100): inputs as the free-run
     # hands them over (f32 latents, f32 one-hot actions).
@@ -2417,7 +2929,12 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     made = distill_phase(model, student, qt, ds)
 
-    # 12. the kernels line.  launches: the sum over the main paths, each
+    # 12. the eighth main path: a host actor's replay buffer feeds training
+    # and the free-run
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    replay = replay_phase(model, latent, (mse, rew), train_ms, cli_runs["videos"])
+
+    # 13. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
@@ -2428,7 +2945,8 @@ def main() -> int:
                    **{path: n[counter] for path, n in mpc["launches"].items()},
                    "cli": cli_runs["launches"][counter],
                    "zoo": zoo["launches"][counter],
-                   "distill": made["launches"][counter]}
+                   "distill": made["launches"][counter],
+                   "host_replay": replay["launches"][counter]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,

@@ -3,10 +3,10 @@
 Port of ``scmgan_tpu/analysis/video.py``.  The reference shells out to
 ffmpeg/libx264 through ``imutil`` (reference README.md:20; e.g.
 main.py:350,601-603); encoding stays on the host, out of every device path.
-Backend order: imageio mp4 (when an ffmpeg plugin is importable), imageio
-GIF, per-frame PNGs (PIL), and last a compressed ``.npz`` of the frames.
-The JAX package's native uncompressed-AVI writer (``scmgan_tpu/native``)
-waits for the port's own loader of those C sources.
+Backend order, as the JAX package's: imageio mp4 (when an ffmpeg plugin is
+importable), the native uncompressed AVI (``scmgan_tpu_torch.native``, C
+built with ``cc``), imageio GIF, per-frame PNGs (PIL), and last a
+compressed ``.npz`` of the frames.
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ class Video:
             import imageio
         except ImportError:
             imageio = None
+        # 1. mp4 via imageio + ffmpeg
         if imageio is not None:
-            # imageio raises its own errors for a missing plugin or backend
             try:
                 with imageio.get_writer(base + ".mp4", fps=self.framerate) as w:
                     for f in frames:
@@ -73,11 +73,23 @@ class Video:
                 return base + ".mp4"
             except Exception:  # noqa: BLE001 - no ffmpeg plugin: next backend
                 pass
+        # 2. the native AVI writer
+        try:
+            from scmgan_tpu_torch.native import aviwriter
+
+            path = base + ".avi"
+            aviwriter.write_avi(path, np.stack(frames), self.framerate)
+            return path
+        except Exception:  # noqa: BLE001 - no C compiler or write error: next backend
+            pass
+        # 3. GIF
+        if imageio is not None:
             try:
                 imageio.mimsave(base + ".gif", frames, duration=1.0 / self.framerate)
                 return base + ".gif"
             except Exception:  # noqa: BLE001 - no GIF plugin: next backend
                 pass
+        # 4. PNG frames, else an .npz of them
         try:
             from PIL import Image
         except ImportError:

@@ -29,8 +29,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Learn to model a sequential environment (PyTorch/CUDA port)")
     p.add_argument("--env", required=True,
-                   help="One of: minipacman, gridworld, pong/betterpong "
-                        "(see scmgan_tpu_torch/envs for the registry)")
+                   help="A synthetic env (minipacman, gridworld, pong/betterpong, "
+                        "...; see scmgan_tpu_torch/envs for the registry) or a "
+                        "host datasource: gym:<Name> (any pixel gym/gymnasium "
+                        "env), sc2_* (StarCraft II), atari, centipede")
     p.add_argument("--load-from", type=str, default=None,
                    help="Directory containing model-*.npz checkpoints")
     p.add_argument("--evaluate", action="store_true")
@@ -314,6 +316,9 @@ def main(argv=None) -> dict:
         ts.close()
         print(ts)
         print("Finished")
+    close = getattr(datasource, "close", None)
+    if close:
+        close()  # stop host-env actor threads before interpreter teardown
     print("Finished execution, terminating")
     results["state"] = state
     return results

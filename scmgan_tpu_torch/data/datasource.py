@@ -1,9 +1,11 @@
 """Datasource facade: the uniform trajectory-batch API.
 
-Port of ``scmgan_tpu/data/datasource.py`` for the on-device synthetic envs
-(``collect``, ``get_trajectories``, ``make_env``, ``convert_frame`` and
+Port of ``scmgan_tpu/data/datasource.py`` (``collect``,
+``get_trajectories``, ``make_env``, ``convert_frame`` and
 ``allocate_datasource``, datasource.py:44-94), with the reference's four
-channel-count attributes.  Host-process envs (ALE, SC2, gym) wait.
+channel-count attributes.  The on-device synthetic envs are ``Datasource``s;
+host-process envs (ALE, SC2, gym) route to ``envs.host``, whose
+datasources play into a replay buffer (``data/replay.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +67,13 @@ class Datasource:
         return state, state
 
 
-def allocate_datasource(name: str, seed: int = 0, device="cuda") -> Datasource:
-    """String -> Datasource (reference datasource.py:8-26)."""
+def allocate_datasource(name: str, seed: int = 0, device="cuda"):
+    """String -> Datasource (reference datasource.py:8-26).  Host-process
+    environments (ALE / SC2 / generic gym) route through ``envs.host``;
+    ``"gym:<EnvName>"`` reaches any pixel gym/gymnasium env."""
+    if (name.startswith("sc2_") or name.startswith("gym:")
+            or name in ("atari", "centipede")):
+        from scmgan_tpu_torch.envs.host import allocate_host_datasource
+
+        return allocate_host_datasource(name, seed=seed, device=device)
     return Datasource(get_env(name), seed=seed, device=device)

@@ -8,6 +8,7 @@
     python3 scripts/rehearse_chip_smoke.py --cli-only    # phase 9 alone
     python3 scripts/rehearse_chip_smoke.py --zoo-only    # phase 10 alone
     python3 scripts/rehearse_chip_smoke.py --distill-only  # phase 11 alone
+    python3 scripts/rehearse_chip_smoke.py --replay-only   # phase 12 alone
 
 The script's control flow, shapes and checks run with every CUDA call
 mapped to the CPU: ``torch.Generator(device="cuda")`` and
@@ -23,7 +24,9 @@ shipped bundles at their width), one causal run, 20 Higgins iterations,
 and its subprocess with ``--platform cpu``; the student-making phase runs
 its ``distill_student`` process in this one (so that its launches are
 counted) at 4 iterations, B = 2, a B = 4 x 14 gate, without holding the
-falling BCE or the gates.  Every time it prints is a CPU time or a stub,
+falling BCE or the gates; the host-replay phase stitches with the native
+library built by ``cc`` here, at B = 4, with phase 6's training shrunk the
+same way.  Every time it prints is a CPU time or a stub,
 never a card's.  It finds faults of control flow before a card is used;
 the numbers of the checks (losses, curves, round trips) are the CPU's.
 """
@@ -91,6 +94,8 @@ def main() -> int:
                     help="run phase 10 (the env zoo and its bundles) alone")
     ap.add_argument("--distill-only", action="store_true",
                     help="run phase 11 (making a student) alone")
+    ap.add_argument("--replay-only", action="store_true",
+                    help="run phase 12 (the host data path) alone")
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
@@ -101,12 +106,13 @@ def main() -> int:
     from scmgan_tpu_torch.analysis import mse
     from scmgan_tpu_torch.cli import distill_student
     from scmgan_tpu_torch.cli import main as cli
-    from scmgan_tpu_torch.data import datasource
+    from scmgan_tpu_torch.data import datasource, replay
     from scmgan_tpu_torch.models import quantized
     from scmgan_tpu_torch.train import checkpoint
 
     cpu = lambda device="cuda": torch.device("cpu")  # noqa: E731
     datasource.resolve_device = cpu
+    replay.resolve_device = cpu
     checkpoint.resolve_device = cpu
     oracle.resolve_device = cpu
     mse.fused_transition = counting(mse.fused_transition, cs.fused_transition)
@@ -119,6 +125,7 @@ def main() -> int:
     cs.Config = lambda **kw: config(**{**kw, "batch_size": args.batch,
                                        "hidden_dim": args.hidden})
     cs.BATCH, cs.CHECK_BATCHES, cs.EXTRA_BATCH = 4, (2, 4), 2
+    cs.REPLAY_BATCHES = ((4, 10, True), (4, 14, False))
     cs.TIMESTEPS = cs.FIDELITY_TIMESTEPS = cs.TRAIN_EVAL_TIMESTEPS = 14
     cs.MPC_LOOKAHEAD, cs.MPC_DEPTH, cs.MPC_STEPS, cs.MPC_HOST_STEPS = 1, 2, 4, 4
     cs.MPC_GRID_EPISODES, cs.MPC_PONG_MAX_EPISODES, cs.MPC_AGREEMENT_STATES = 2, 2, 3
@@ -160,7 +167,12 @@ def main() -> int:
     t0 = time.perf_counter()
     if args.train_only:
         ds = datasource.allocate_datasource(cs.ENV, seed=cs.SEED, device="cpu")
-        print("launches", cs.train_phase(ds, 16))
+        print("launches", cs.train_phase(ds, 16)[0])
+        rc = 0
+    elif args.replay_only:
+        model = cs.load_model(cs.BUNDLE, device="cuda")
+        print("launches", cs.replay_phase(model, 16, ([1.0] * 20, [1.0] * 20), {},
+                                          ["prediction_01_iter_000010.avi"])["launches"])
         rc = 0
     elif args.mpc_only:
         print("launches", cs.mpc_phase()["launches"])
