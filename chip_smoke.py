@@ -155,13 +155,32 @@ Phases:
      and centipede raises, and sc2_star_intruders' env constructor's (with
      gym, a CarRacing collect and one train step on the card); (h) no actor
      thread alive after ``close()``;
-  13. a ``kernels`` JSON line (launches summed over the main paths), the
+  13. the ninth main path, the device mesh (``mesh_phase``; one card, so a
+     one-process NCCL group: NCCL refuses two processes on one device, and
+     multi-process meshes are held in the CPU tests): (a) ``python -m
+     scmgan_tpu_torch --mesh 1x1`` in its own process on minipacman at full
+     width (B = 32, 12 iterations, the evaluation hook before the last),
+     every iteration's metrics equal to the same run without ``--mesh``
+     (rtol 1e-6), the kernels' launches the hook implies (the kernels
+     line's ``mesh`` path), its checkpoint loaded unsharded (the two
+     processes run together); (b) in this
+     process the sharded step at (1, 1) against the plain step, 10
+     iterations each from one state and seed (the two alternating step by
+     step), losses and parameters equal,
+     ms per iteration and peak memory of both; (c) ``pipeline_transition``
+     over three streams of the card with minipacman_cf's transition at
+     B = 100, 64x64, 1, 2 and 4 microbatches, TF32 off: probabilities
+     within 1e-5 of the unsharded transition's, bits equal except where
+     |p - 0.5| <= 1e-5 (counted), ms per call beside the unsharded cuDNN
+     transition and the ``fused_transition`` kernel; (d) the spatial
+     transition on the one-process ring bit-equal to the unsharded one;
+  14. a ``kernels`` JSON line (launches summed over the main paths), the
      card line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
 A watchdog ends a hang with a traceback and a non-zero exit (armed for
-phases 1-8, and again for phases 9, 10, 11 and 12).
+phases 1-8, and again for phases 9, 10, 11, 12 and 13).
 """
 
 from __future__ import annotations
@@ -238,7 +257,11 @@ from scmgan_tpu_torch.models.world_model import (
     encode,
     init_transition,
     init_world_model,
+    transition,
 )
+from scmgan_tpu_torch.parallel import distributed
+from scmgan_tpu_torch.parallel.mesh import gather_pytree, make_mesh, spatial_transition
+from scmgan_tpu_torch.parallel.pipeline import pipeline_transition
 from scmgan_tpu_torch.train import checkpoint as ckpt
 from scmgan_tpu_torch.train import distill, trainer
 from scmgan_tpu_torch.train.checkpoint import (
@@ -2639,6 +2662,204 @@ def replay_phase(model, latent, phase4, phase6_ms, cli_videos) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the device mesh, the pipeline and the spatial transition
+# ---------------------------------------------------------------------------
+
+MESH_ITERS = 12            # horizon 3 -> 10; the evaluation hook before the last step
+MESH_BATCH = 32
+MESH_EVAL_TIMESTEPS = 30
+MESH_STEP_ITERS = 10       # (b): iterations timed at each route
+MESH_STEP_HORIZON = 6
+PIPE_MICRO = (1, 2, 4)
+PIPE_P_ATOL = 1e-5         # f32 convs with TF32 off, summed in other orders
+MESH_DEVICE = "cuda"
+PIPE_DEVICES = ("cuda:0",) * 3
+# (a) runs the command line in its own process under this runner, which
+# prints every iteration's metrics and the kernels' launch counts
+MESH_RUNNER = """
+import json, sys
+from scmgan_tpu_torch.cli import main as cli
+from scmgan_tpu_torch.ops.kernels import int8_transition as i8
+from scmgan_tpu_torch.ops.kernels.fused_decoder import fused_decode
+from scmgan_tpu_torch.ops.kernels.fused_transition import fused_transition
+from scmgan_tpu_torch.train import trainer
+losses, train = [], trainer.train
+def recording(*args, log_fn=None, **kw):
+    def log(i, metrics):
+        losses.append({k: float(v) for k, v in metrics.items()})
+        log_fn(i, metrics)
+    return train(*args, log_fn=log, **kw)
+trainer.train = recording
+for f in (fused_transition, fused_decode, i8.int8_transition):
+    f.launches = 0
+cli.main(sys.argv[1:])
+print("MESH_RESULT " + json.dumps({"losses": losses, "launches": {
+    "fused_transition": fused_transition.launches, "fused_decode": fused_decode.launches,
+    "int8_transition": i8.int8_transition.launches}}))
+"""
+
+
+def run_mesh_clis(runs):
+    """``python -m scmgan_tpu_torch argv`` under ``MESH_RUNNER`` for each
+    (label, argv), the processes started together: each one's
+    per-iteration metrics and launches, and the wall seconds of all."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_RUNNER, *argv], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _, argv in runs]
+    results = []
+    for (label, argv), proc in zip(runs, procs):
+        stdout, stderr = proc.communicate(timeout=300)
+        line = next((l for l in stdout.splitlines() if l.startswith("MESH_RESULT ")), None)
+        if proc.returncode != 0 or line is None:
+            say(stdout[-2000:])
+            say(stderr[-3000:])
+            raise AssertionError(f"mesh ({label}): python -m scmgan_tpu_torch failed")
+        res = json.loads(line[len("MESH_RESULT "):])
+        say(f"[mesh] ({label}) python -m scmgan_tpu_torch {' '.join(argv)}: launches "
+            f"{res['launches']}")
+        results.append(res)
+    return results, time.perf_counter() - t0
+
+
+def mesh_step_routes(ds):
+    """(b): the sharded step at (1, 1) against the plain step, from one
+    state, batch and draws, ms per iteration and peak memory each.  Each
+    route's step is built once and called every iteration, as ``train``
+    builds one step per horizon."""
+    cfg = Config(env=ENV, seed=SEED, enable_disentanglement_loss=True,
+                 enable_action_control_loss=True, counterfactual_horizon=2)
+    mesh = make_mesh((1, 1), device_type=MESH_DEVICE)
+    routes = {"plain": None, "sharded (1, 1)": mesh}
+    runs = {}
+    for route, rules in routes.items():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        runs[route] = {"gen": gen, "state": trainer.init_train_state(cfg, ds.spec, gen),
+                       "step": trainer.make_train_step(cfg, MESH_STEP_HORIZON, rules),
+                       "losses": [], "ms": [], "peak": 0}
+    # the routes alternate step by step, so that the shared host's clock
+    # treats them alike; each starts from its own generator of one seed
+    for i in range(MESH_STEP_ITERS):
+        for route, r in runs.items():
+            batch = ds.collect(cfg.batch_size, MESH_STEP_HORIZON, generator=r["gen"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r["state"], metrics = r["step"](r["state"], batch, LossNoise(r["gen"]), 0.5,
+                                            float(i % 2))
+            torch.cuda.synchronize()
+            r["ms"].append(1e3 * (time.perf_counter() - t0))
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+            r["losses"].append({k: float(v) for k, v in metrics.items()})
+    out = {}
+    for route, r in runs.items():
+        state = r["state"]
+        params = state.params if state.shardings is None else gather_pytree(
+            state.params, state.shardings)
+        out[route] = {"losses": r["losses"], "params": flat_params(params),
+                      "ms": float(np.mean(r["ms"][1:])), "first_ms": r["ms"][0],
+                      "peak_gib": r["peak"] / 2**30}
+        say(f"[mesh] (b) {route} step, minipacman B = {cfg.batch_size}, horizon "
+            f"{MESH_STEP_HORIZON}, {cfg.compute_dtype}: {out[route]['ms']:.3f} ms per "
+            f"iteration (mean of {MESH_STEP_ITERS - 1} after the first, "
+            f"{out[route]['first_ms']:.3f}; the routes alternate); peak during its steps "
+            f"{out[route]['peak_gib']:.3f} GiB (both states resident)")
+    plain, sharded = out["plain"], out["sharded (1, 1)"]
+    if plain["losses"] != sharded["losses"]:
+        raise AssertionError(f"mesh (b): the (1, 1) step's losses differ: "
+                             f"{plain['losses'][-1]} vs {sharded['losses'][-1]}")
+    for k, v in plain["params"].items():
+        if not torch.equal(v, sharded["params"][k]):
+            raise AssertionError(f"mesh (b): the (1, 1) step's {k} differs")
+    return mesh, out
+
+
+def mesh_pipeline_and_spatial(model, mesh, rng, num_actions):
+    """(c) the pipeline over three streams of one card and (d) the spatial
+    transition on the one-process ring, against the unsharded transition."""
+    b = BATCH
+    z, a = binary_latents(rng, b), onehot_actions(rng, b, num_actions)
+    params = model.transition
+    out = {}
+    with no_tf32():
+        probs = transition(params, z, a, train=True, deterministic=True)
+        bits = transition(params, z, a, train=False)
+        near = (probs - 0.5).abs() <= PIPE_P_ATOL
+        for n in PIPE_MICRO:
+            got = pipeline_transition(params, z, a, PIPE_DEVICES, n_micro=n)
+            got_p = pipeline_transition(params, z, a, PIPE_DEVICES, n_micro=n, sample=False)
+            p_err = float((got_p - probs).abs().max())
+            flips = got != bits
+            if p_err > PIPE_P_ATOL or bool((flips & ~near).any()):
+                raise AssertionError(f"mesh (c): pipeline n_micro={n}: max |dp| {p_err:.3e}, "
+                                     f"{int(flips.sum())} flipped bits, "
+                                     f"{int((flips & ~near).sum())} away from p = 0.5")
+            ms = cuda_ms(lambda n=n: pipeline_transition(params, z, a, PIPE_DEVICES,
+                                                         n_micro=n), iters=3, warmup=1)
+            out[n] = {"ms": ms, "max_abs_dp": p_err, "flips": int(flips.sum())}
+            say(f"[mesh] (c) pipeline_transition n_micro={n} on {list(PIPE_DEVICES)}: "
+                f"max |p - p_ref| {p_err:.3e}, {int(flips.sum())} bits flipped "
+                f"({int(near.sum())} of {near.numel()} within {PIPE_P_ATOL} of 0.5); "
+                f"{ms:.3f} ms per call")
+        plain_ms = cuda_ms(lambda: transition(params, z, a, train=False), iters=3, warmup=1)
+        spatial = spatial_transition(params, z, a, mesh)
+        if not torch.equal(spatial, bits):
+            raise AssertionError(f"mesh (d): the spatial transition differs in "
+                                 f"{int((spatial != bits).sum())} bits")
+        say(f"[mesh] (d) spatial_transition on the one-process ring (B = {b}, "
+            f"{z.shape[1]}x{z.shape[2]}): bit-equal to the unsharded transition")
+    pt = pack_transition_weights(params, z.shape[-1], num_actions)
+    kernel_ms = cuda_ms(lambda: fused_transition(pt, z, a))
+    say(f"[mesh] (c) per call at B = {b}, 64x64: unsharded cuDNN transition (f32) "
+        f"{plain_ms:.3f} ms, fused_transition kernel (bf16) {kernel_ms:.4f} ms; pipeline "
+        + ", ".join(f"n_micro={n} {r['ms']:.3f} ms" for n, r in out.items()))
+    return {"pipeline": out, "plain_ms": plain_ms, "kernel_ms": kernel_ms}
+
+
+def mesh_phase(model, ds):
+    """The ninth main path: the command line on a device mesh, the sharded
+    step, the pipeline and the spatial transition on one card."""
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    argv = ["--env", ENV, "--seed", str(SEED), "--batch-size", str(MESH_BATCH), "--train-iters",
+            str(MESH_ITERS), "--iters-per-video", str(MESH_ITERS), "--eval-batch-size",
+            str(BATCH), "--eval-timesteps", str(MESH_EVAL_TIMESTEPS), "--no-videos"]
+    # (a) --mesh 1x1 (a one-process NCCL group) against the same run without it
+    (mesh_res, plain_res), wall = run_mesh_clis(
+        [("--mesh 1x1", [*argv, "--mesh", "1x1", "--out-dir", f"{out}/mesh"]),
+         ("no mesh", [*argv, "--out-dir", f"{out}/plain"])])
+    if len(mesh_res["losses"]) != MESH_ITERS:
+        raise AssertionError(f"mesh (a): {len(mesh_res['losses'])} iterations logged")
+    worst = 0.0
+    for i, (m, p) in enumerate(zip(mesh_res["losses"], plain_res["losses"])):
+        for k in p:
+            rel = abs(m[k] - p[k]) / max(abs(p[k]), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1e-6 or not np.isfinite(m[k]):
+                raise AssertionError(f"mesh (a): iteration {i + 1} {k}: {m[k]} vs {p[k]}")
+    want = evaluate_launches(cli_config(argv), videos=False)
+    check_launches("mesh 1x1", mesh_res["launches"], want)
+    check_launches("no mesh", plain_res["launches"], want)
+    state = ckpt.load_train_state(f"{out}/mesh", trainer.init_train_state(
+        cli_config(argv), ds.spec, torch.Generator(device="cuda").manual_seed(0)))
+    if state.step != MESH_ITERS or state.shardings is not None:
+        raise AssertionError(f"mesh (a): the checkpoint loads at step {state.step}")
+    say(f"[mesh] (a) {MESH_ITERS} iterations, minipacman B = {MESH_BATCH} at full width: losses of "
+        f"the --mesh 1x1 run equal the plain run's (worst relative difference {worst:.3e}); "
+        f"final loss {mesh_res['losses'][-1]['loss']:.6f}; checkpoint at step {state.step} "
+        f"loads unsharded; both processes (run together) {wall:.3f} s wall")
+    mesh, routes = mesh_step_routes(ds)
+    try:
+        pipe = mesh_pipeline_and_spatial(model, mesh, np.random.default_rng(SEED + 13),
+                                         ds.binary_input_channels)
+    finally:
+        distributed.shutdown()
+    say(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": mesh_res["launches"], "routes": routes, "pipe": pipe}
+
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -2934,7 +3155,12 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     replay = replay_phase(model, latent, (mse, rew), train_ms, cli_runs["videos"])
 
-    # 13. the kernels line.  launches: the sum over the main paths, each
+    # 13. the ninth main path: the device mesh (one card: a one-process
+    # NCCL group), the pipeline and the spatial transition
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    mesh = mesh_phase(model, ds)
+
+    # 14. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
@@ -2946,7 +3172,8 @@ def main() -> int:
                    "cli": cli_runs["launches"][counter],
                    "zoo": zoo["launches"][counter],
                    "distill": made["launches"][counter],
-                   "host_replay": replay["launches"][counter]}
+                   "host_replay": replay["launches"][counter],
+                   "mesh": mesh["launches"][counter]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,

@@ -9,8 +9,14 @@ on request, the causal graph and the Higgins metric; main.py:92-99),
 the reference's ``model-*.pth``) and ``--student``.
 
 ``--platform`` picks the device: ``cuda`` by default, ``cpu`` on request;
-there is no fall-back to the CPU when no card is found.  ``--mesh`` reaches
-``Config``, which refuses it (ROADMAP Queue 1.9).  ``--no-videos`` also
+there is no fall-back to the CPU when no card is found.  ``--mesh DxM``
+trains on a device mesh of D x M processes, one per device, launched as
+``torchrun --nproc-per-node 2 -m scmgan_tpu_torch --platform cpu --mesh 2x1
+...`` (NCCL between cards, gloo on the CPU; ``--mesh 1x1`` needs no
+launcher): the parameters are sharded over M, the batch over D
+(``parallel/``); the evaluation hook runs on the first process, on the
+gathered parameters, and the checkpoint is written whole by it.  As in the
+JAX package, ``--evaluate`` ignores the mesh.  ``--no-videos`` also
 turns off the playthroughs' videos.  The TensorBoard mirror (where
 tensorboardX imports) writes under ``<out-dir>/runs``.
 """
@@ -70,8 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="The JAX package's BPTT unroll factor; the port's "
                         "time loop is eager, so it has no effect here")
     p.add_argument("--mesh", type=str, default=None,
-                   help="Device mesh as DATAxMODEL, e.g. 4x2 (not ported: "
-                        "ROADMAP Queue 1.9)")
+                   help="Device mesh as DATAxMODEL, e.g. 4x2: one process "
+                        "per device (torchrun), DATA*MODEL = WORLD_SIZE")
     p.add_argument("--no-videos", action="store_true")
     p.add_argument("--platform", type=str, default=None,
                    help="cuda (the default) or cpu")
@@ -198,6 +204,29 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = platform_device(args.platform)
     cfg = config_from_args(args)
+
+    # The mesh comes first: under NCCL joining the group binds this
+    # process's card, on which everything below is made.
+    if cfg.mesh_shape is None:
+        return _run(args, cfg, device, None, 0, cfg.seed)
+    from scmgan_tpu_torch.parallel import distributed
+    from scmgan_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        distributed.initialize(backend="nccl" if device.type == "cuda" else "gloo")
+        mesh = make_mesh(cfg.mesh_shape, (cfg.data_axis, cfg.model_axis),
+                         device_type=device.type)
+        # JAX's per-process seed (cli/main.py:187-191), by 'data'
+        # coordinate: each 'data' group's host actors play their own
+        # episodes, and the first one's datasource is the one-device run's
+        data_index = mesh.get_local_rank(cfg.data_axis)
+        return _run(args, cfg, device, mesh, torch.distributed.get_rank(),
+                    cfg.seed + 1000003 * data_index)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, cfg, device, mesh, rank, seed) -> dict:
     os.makedirs(cfg.out_dir, exist_ok=True)
 
     from scmgan_tpu_torch.agent.play import play
@@ -207,7 +236,7 @@ def main(argv=None) -> dict:
     from scmgan_tpu_torch.train.trainer import init_train_state, train
     from scmgan_tpu_torch.utils.timeseries import TimeSeries
 
-    datasource = allocate_datasource(cfg.env, seed=cfg.seed, device=device)
+    datasource = allocate_datasource(cfg.env, seed=seed, device=device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     state = init_train_state(cfg, datasource.spec, generator)
 
@@ -291,30 +320,45 @@ def main(argv=None) -> dict:
                     cfg.latent_dim, train_iters=args.higgins_iters)
                 results["higgins"] = {"conv": conv, "spatial": spatial}
     else:
-        ts = TimeSeries("Training Model", cfg.train_iters, tensorboard=True,
+        # under a mesh the metrics are averaged over it: the first process
+        # logs them
+        ts = TimeSeries("Training Model", cfg.train_iters, tensorboard=rank == 0,
                         logdir=os.path.join(cfg.out_dir, "runs"))
 
         def log_fn(i, metrics):
             # reading a metric waits for the card: sample every 10th
             if i % 10 == 0:
                 ts.collect_dict(metrics)
-            ts.print_every(10)
+            if rank == 0:
+                ts.print_every(10)
 
         def eval_fn(state, train_iter):
-            evaluate(state.params, datasource, train_iter=train_iter,
-                     out_dir=cfg.out_dir, make_videos=not args.no_videos,
-                     eval_batch_size=cfg.eval_batch_size,
-                     eval_timesteps=cfg.eval_timesteps)
+            params = state.params
+            if state.shardings is not None:
+                from scmgan_tpu_torch.parallel.mesh import gather_pytree
+
+                params = gather_pytree(params, state.shardings)
+            if rank == 0:
+                # draws from the datasource's own generator, never from the
+                # one every process steps alike
+                evaluate(params, datasource, train_iter=train_iter,
+                         out_dir=cfg.out_dir, make_videos=not args.no_videos,
+                         eval_batch_size=cfg.eval_batch_size,
+                         eval_timesteps=cfg.eval_timesteps)
+            if mesh is not None:
+                torch.distributed.barrier()
 
         def checkpoint_fn(state, train_iter):
-            print("Saving networks to filesystem...")
+            if rank == 0:
+                print("Saving networks to filesystem...")
             ckpt.save_train_state(cfg.out_dir, state)
 
-        state = train(cfg, datasource, state, eval_fn=eval_fn,
+        state = train(cfg, datasource, state, mesh_and_rules=mesh, eval_fn=eval_fn,
                       checkpoint_fn=checkpoint_fn, log_fn=log_fn,
                       generator=generator)
         ts.close()
-        print(ts)
+        if rank == 0:
+            print(ts)
         print("Finished")
     close = getattr(datasource, "close", None)
     if close:

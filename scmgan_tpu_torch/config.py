@@ -71,7 +71,7 @@ class Config:
     compute_dtype: str = "bfloat16"    # losses accumulate in f32
     data_axis: str = "data"
     model_axis: str = "model"
-    # device mesh shape; only None (one device) is ported
+    # (data, model) device mesh shape; None: one device
     mesh_shape: Optional[tuple] = None
 
     # --- evaluation --------------------------------------------------------
@@ -84,12 +84,6 @@ class Config:
     mpc_samples: int = 1
     mpc_policy: str = "noop"
     mpc_stall_patience: int = 10
-
-    def __post_init__(self):
-        if self.mesh_shape is not None:
-            raise NotImplementedError(
-                "mesh_shape: the port runs on one device; data and tensor "
-                "parallelism wait for ROADMAP Queue 1.9")
 
     @property
     def pdtype(self) -> torch.dtype:

@@ -13,11 +13,12 @@ per-factor layers) and ``predict_reward`` (the signed spatial map).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from scmgan_tpu_torch.ops.conv import (
+    circular_pad,
     conv2d,
     conv2d_init,
     conv_transpose2d,
@@ -94,7 +95,8 @@ def init_transition(generator, latent_dim: int, num_actions: int,
 
 def transition(params: dict, z: torch.Tensor, action_onehot: torch.Tensor,
                u: Optional[torch.Tensor] = None, *, train: bool = True,
-               return_all: bool = False, deterministic: bool = False):
+               return_all: bool = False, deterministic: bool = False,
+               pad: Callable[[torch.Tensor], torch.Tensor] = circular_pad):
     """One latent dynamics step.
 
     z: (B, H, W, latent); action_onehot: (B, A), broadcast to every pixel.
@@ -103,25 +105,27 @@ def transition(params: dict, z: torch.Tensor, action_onehot: torch.Tensor,
     the sigmoid itself; with ``train`` and uniforms ``u`` (z's shape) the
     straight-through Bernoulli sample ``u < p``; otherwise the eval-mode
     threshold at 0.5.  ``u`` stands in for the JAX function's key.
+    ``pad`` gives each conv's input its one-pixel border (the torus's wrap;
+    ``parallel.mesh.spatial_transition`` passes ring-neighbour halos).
     """
     b, h, w, _ = z.shape
     a_map = action_onehot[:, None, None, :].to(z.dtype).expand(
         b, h, w, action_onehot.shape[-1])
     x = torch.cat([z, a_map], dim=-1)
 
-    x = leaky_relu(_sn_conv(params["conv1"], x, circular=True))
+    x = leaky_relu(_sn_conv(params["conv1"], pad(x), padding="VALID"))
     skip1 = x
-    x = leaky_relu(_sn_conv(params["conv2"], x, circular=True))
+    x = leaky_relu(_sn_conv(params["conv2"], pad(x), padding="VALID"))
     skip2 = x
-    x = leaky_relu(_sn_conv(params["conv3"], x, circular=True))
+    x = leaky_relu(_sn_conv(params["conv3"], pad(x), padding="VALID"))
     out3 = x
-    x = leaky_relu(_sn_conv(params["conv4"], x, circular=True))
+    x = leaky_relu(_sn_conv(params["conv4"], pad(x), padding="VALID"))
     out4 = x
     x = torch.cat([x, skip2], dim=-1)
-    x = leaky_relu(_sn_conv(params["conv5"], x, circular=True))
+    x = leaky_relu(_sn_conv(params["conv5"], pad(x), padding="VALID"))
     out5 = x
     x = torch.cat([x, skip1], dim=-1)
-    x = torch.sigmoid(conv2d(params["conv6"], x, circular=True))
+    x = torch.sigmoid(conv2d(params["conv6"], pad(x), padding="VALID"))
     if train and deterministic:
         pass
     elif train and u is not None:

@@ -27,6 +27,13 @@ every network out of it, yet counts its steps), and the port has no
 optimizer for those networks.  A directory holding the reference's
 ``model-*.pth`` files (and no ``model-encoder.npz``) loads through
 ``train/torch_import.py``.
+
+A state sharded over a device mesh (``TrainState.shardings``) is saved
+whole: every process gathers the parameters and Adam moments, the first
+process alone writes them in this layout and the others wait at a barrier;
+loading into a sharded template lays the loaded state out on its mesh.  So
+a sharded run's checkpoint loads in the unsharded port and in the JAX
+package, and any checkpoint resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -195,7 +202,18 @@ def _is_sn(path: str) -> bool:
 
 def save_train_state(ckpt_dir: str, state):
     """Exact-resume checkpoint: the five networks, the optimizer state in
-    optax's layout (``opt_state.npz``) and ``step.npz``."""
+    optax's layout (``opt_state.npz``) and ``step.npz``.  A sharded state is
+    gathered (a collective) and written by the first process alone."""
+    if getattr(state, "shardings", None) is not None:
+        import torch.distributed as dist
+
+        from scmgan_tpu_torch.parallel.mesh import gather_train_state
+
+        full = gather_train_state(state)
+        if dist.get_rank() == 0:
+            save_train_state(ckpt_dir, full)
+        dist.barrier()
+        return
     save_model(ckpt_dir, state.params)
     arrays, steps = {}, {label: set() for label in ADAM_PATHS}
     for name, label in LABELS.items():
@@ -234,8 +252,19 @@ def load_train_state(ckpt_dir: str, template):
     template steps, with the template's settings and, where the directory
     has ``opt_state.npz``, ``exp_avg`` / ``exp_avg_sq`` / ``step`` for
     every parameter and the saved step.  A model-only directory resumes
-    with fresh optimizers and the template's step."""
+    with fresh optimizers and the template's step.  A sharded template (a
+    collective) gets the loaded state laid out on its mesh."""
     from scmgan_tpu_torch.train.trainer import TrainState, trainable_leaves
+
+    if getattr(template, "shardings", None) is not None:
+        from scmgan_tpu_torch.parallel.mesh import (
+            gather_train_state,
+            mesh_of,
+            shard_train_state,
+        )
+
+        full = load_train_state(ckpt_dir, gather_train_state(template))
+        return shard_train_state(full, mesh_of(template.shardings))
 
     device = template.params.encoder["conv1"]["w"].device
     params = load_model(ckpt_dir, device, template=template.params)

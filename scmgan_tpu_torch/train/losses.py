@@ -91,10 +91,65 @@ class LossNoise:
         return torch.randperm(b, generator=self.generator,
                               device=self.generator.device)
 
+    def shuffle_batch(self, actions_oh: torch.Tensor) -> torch.Tensor:
+        """``actions_oh`` (B, ...) with its batch rows in ``permutation``'s
+        order."""
+        return actions_oh[self.permutation(actions_oh.shape[0])]
+
     def rollout(self, shape, dtype) -> torch.Tensor:
         """The uniforms of one step of a CF roll-out (of the term whose
         indices or permutation were drawn last)."""
         return self._uniform(shape, dtype)
+
+
+class ShardedLossNoise(LossNoise):
+    """This process's rows of the draws of a global batch's ``noise``
+    (``parallel/mesh.py::shard_train_step``).
+
+    Every process of the mesh draws the GLOBAL shapes from a ``noise`` that
+    they all seed alike and keeps rows [offset, offset + local): so a step
+    over a 'data'-split batch draws what the one-device step draws.  The
+    slot buffer is batch-major ((B * S) rows), so its rows are
+    [offset * S, (offset + local) * S).  The action-control shuffle crosses
+    the batch: the actions (inputs, with no gradient) are all-gathered over
+    ``group`` (the 'data' axis) before the global permutation."""
+
+    def __init__(self, noise: LossNoise, offset: int, local: int,
+                 global_batch: int, group=None):
+        self.noise, self.offset, self.local = noise, offset, local
+        self.global_batch, self.group = global_batch, group
+
+    def _rows(self, x: torch.Tensor, per: int = 1) -> torch.Tensor:
+        return x[self.offset * per:(self.offset + self.local) * per]
+
+    def _wide(self, shape, per: int = 1):
+        return (self.global_batch * per, *shape[1:])
+
+    def transition(self, t: int, shape, dtype) -> torch.Tensor:
+        return self._rows(self.noise.transition(t, self._wide(shape), dtype))
+
+    def overshoot(self, t: int, shape, dtype) -> torch.Tensor:
+        slots = shape[0] // self.local
+        return self._rows(self.noise.overshoot(t, self._wide(shape, slots), dtype), slots)
+
+    def swap_indices(self, b: int, latent_dim: int):
+        return tuple(self._rows(i) for i in
+                     self.noise.swap_indices(self.global_batch, latent_dim))
+
+    def shuffle_batch(self, actions_oh: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        parts = actions_oh.to(torch.float32).contiguous()
+        if self.global_batch != self.local:
+            gathered = [torch.empty_like(parts) for _ in
+                        range(self.global_batch // self.local)]
+            dist.all_gather(gathered, parts, group=self.group)
+            parts = torch.cat(gathered)
+        perm = self.noise.permutation(self.global_batch).to(parts.device)
+        return self._rows(parts[perm]).to(actions_oh.dtype)
+
+    def rollout(self, shape, dtype) -> torch.Tensor:
+        return self._rows(self.noise.rollout(self._wide(shape), dtype))
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -281,7 +336,7 @@ def world_model_loss(params: WorldModel, batch, noise: LossNoise, theta,
     # counterfactual action control (main.py:264-283): the reference's
     # np.random.shuffle(actions) permutes the batch axis
     if cfg.enable_cf_control:
-        cf_actions = actions_oh[noise.permutation(b)]
+        cf_actions = noise.shuffle_batch(actions_oh)
         z_cf = z_orig
         for t in range(1, cfg.counterfactual_horizon):
             z_cf = step(z_cf, cf_actions[:, t],

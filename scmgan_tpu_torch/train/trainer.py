@@ -19,14 +19,20 @@ network takes every step, with a zero gradient where the loss does not
 reach it, as optax steps it: one count per network, as ``opt_state.npz``
 records it.  Optax and ``torch.optim.Adam``
 place epsilon and the bias corrections alike (lr * m_hat / (sqrt(v_hat) +
-eps)); they round the moments' updates in another order.  The device mesh
-of the JAX package (``mesh_and_rules``) waits for ROADMAP Queue 1.9.
+eps)); they round the moments' updates in another order.
+
+Under a device mesh (``mesh_and_rules``, a ``DeviceMesh`` from
+``parallel.mesh.make_mesh``) the state's parameters and Adam moments are
+stored sharded over 'model', each process steps its rows of the batch
+('data'), and the step gathers the parameters, averages the gradients over
+'data' before the clip and refreshes the spectral norms on the gathered
+weights (``parallel/mesh.py``): the same step, within float tolerance.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -43,11 +49,14 @@ CLIPPED = ("encoder", "decoder", "transition")
 @dataclasses.dataclass
 class TrainState:
     """Parameters, one Adam per trained network (a frozen network has
-    none), and the step count.  Adam updates the parameters in place."""
+    none), and the step count.  Adam updates the parameters in place.
+    Under a mesh, ``params`` and the moments hold this process's shards and
+    ``shardings`` says how each leaf lies (``parallel.mesh``); else None."""
 
     params: WorldModel
     optimizers: Dict[str, torch.optim.Adam]
     step: int
+    shardings: Optional[Any] = None
 
 
 def trainable_leaves(network: dict):
@@ -118,26 +127,33 @@ def loss_config(cfg: Config, horizon: int) -> LossConfig:
     )
 
 
-def make_train_step(cfg: Config, horizon: int):
+def make_train_step(cfg: Config, horizon: int, mesh_and_rules=None):
     """The train step for one horizon bucket:
     fn(state, batch, noise, theta, cf_active) -> (state, metrics).
 
     Loss, backward, the value clip on the clipped networks, one Adam step
     per network, then the spectral-norm refresh (trainer.py:123).  The
-    returned metrics are detached f32 scalars on the device.
+    returned metrics are detached f32 scalars on the device.  With
+    ``mesh_and_rules`` (a ``DeviceMesh``) the step is
+    ``parallel.mesh.shard_train_step``'s: ``batch`` holds this process's
+    rows and ``noise`` draws the global batch's numbers.
     """
     lcfg = loss_config(cfg, horizon)
 
-    def step_fn(state: TrainState, batch, noise: LossNoise, theta, cf_active):
+    def step_fn(state: TrainState, batch, noise: LossNoise, theta, cf_active,
+                sharded=None):
         obs, rewards, dones, actions = batch
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
+        params = state.params if sharded is None else sharded.gather(state.params)
         loss, metrics = world_model_loss(
-            state.params, (obs.to(cfg.cdtype), rewards, dones, actions),
+            params, (obs.to(cfg.cdtype), rewards, dones, actions),
             noise, theta, cf_active, lcfg)
         loss.backward()
         with torch.no_grad():
-            for name, opt in state.optimizers.items():
+            if sharded is not None:
+                sharded.shard_grads()
+            for opt in state.optimizers.values():
                 for group in opt.param_groups:
                     for p in group["params"]:
                         if p.grad is None:
@@ -146,18 +162,36 @@ def make_train_step(cfg: Config, horizon: int):
                             # a zero gradient, counting the step and decaying
                             # its moments
                             p.grad = torch.zeros_like(p)
-                        elif name in CLIPPED:
+            if sharded is not None:
+                # the global gradient, before the clip sees it
+                sharded.reduce_grads([p for opt in state.optimizers.values()
+                                      for group in opt.param_groups
+                                      for p in group["params"]])
+            for name, opt in state.optimizers.items():
+                if name in CLIPPED:
+                    for group in opt.param_groups:
+                        for p in group["params"]:
                             p.grad.clamp_(-cfg.grad_clip_value, cfg.grad_clip_value)
                 opt.step()
-            params = update_spectral_norms(state.params)
-        return (TrainState(params, state.optimizers, state.step + 1),
-                {k: v.detach() for k, v in metrics.items()})
+            if sharded is None:
+                params = update_spectral_norms(state.params)
+            else:
+                params = sharded.refresh_spectral_norms(state.params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if sharded is not None:
+            metrics = sharded.mean_metrics(metrics)
+        return (TrainState(params, state.optimizers, state.step + 1, state.shardings),
+                metrics)
 
+    if mesh_and_rules is not None:
+        from scmgan_tpu_torch.parallel.mesh import shard_train_step
+
+        return shard_train_step(step_fn, mesh_and_rules, cfg.data_axis, cfg.model_axis)
     return step_fn
 
 
 def train(cfg: Config, datasource, state: Optional[TrainState] = None, *,
-          eval_fn=None, checkpoint_fn=None, log_fn=None,
+          mesh_and_rules=None, eval_fn=None, checkpoint_fn=None, log_fn=None,
           generator: Optional[torch.Generator] = None) -> TrainState:
     """The outer training loop (reference train(), main.py:106-298).
 
@@ -167,11 +201,40 @@ def train(cfg: Config, datasource, state: Optional[TrainState] = None, *,
     ``iters_per_video``-th iteration.  ``generator`` (on the datasource's
     device; default seeded with ``cfg.seed``) draws the initial parameters
     when ``state`` is None, every batch and every loss draw.
+
+    Under ``mesh_and_rules`` the state is laid out on the mesh and each
+    process steps the rows ``process_batch_slice`` gives it: a device
+    (synthetic) datasource collects the global batch from ``generator``,
+    which every process seeds alike, and keeps those rows, so that a
+    'data'-split run trains as the one-device run does.  A host
+    datasource, whose actors live in each process, collects its rows alone
+    (trainer.py:186): the first process of each 'model' group collects
+    them and sends them, with its generator's state, to the others of the
+    group (``share_model_batch``), whose actors never start.  Its
+    ``collect`` takes one draw of ``generator`` whatever it returns, so the
+    'data' groups' generators stay in step.  The hooks get the sharded
+    state.
+
+    Each horizon's step is built once.
     """
     if generator is None:
         generator = torch.Generator(device=datasource.device).manual_seed(cfg.seed)
     if state is None:
         state = init_train_state(cfg, datasource.spec, generator)
+
+    rows, host, steps = None, False, {}
+    if mesh_and_rules is not None:
+        from scmgan_tpu_torch.data.datasource import Datasource
+        from scmgan_tpu_torch.parallel.distributed import process_batch_slice
+        from scmgan_tpu_torch.parallel.mesh import shard_train_state, share_model_batch
+
+        if state.shardings is None:
+            state = shard_train_state(state, mesh_and_rules, cfg.model_axis)
+        local_batch, batch_offset = process_batch_slice(
+            cfg.batch_size, mesh_and_rules, cfg.data_axis)
+        rows = slice(batch_offset, batch_offset + local_batch)
+        host = not isinstance(datasource, Datasource)
+        collects = mesh_and_rules.get_local_rank(cfg.model_axis) == 0
 
     nan_check_every = 200  # training-health watchdog (trainer.py:197)
     for train_iter in range(cfg.start_iter, cfg.train_iters + 1):
@@ -185,9 +248,18 @@ def train(cfg: Config, datasource, state: Optional[TrainState] = None, *,
         theta = train_iter / cfg.train_iters
         cf_active = 1.0 if train_iter % cfg.cf_regularization_rate == 0 else 0.0
 
-        batch = datasource.collect(cfg.batch_size, horizon, generator=generator)
-        step = make_train_step(cfg, horizon)
-        state, metrics = step(state, batch, LossNoise(generator), theta, cf_active)
+        if host:
+            batch = datasource.collect(rows.stop - rows.start, horizon,
+                                       generator=generator) if collects else None
+            batch = share_model_batch(batch, generator, mesh_and_rules, cfg.model_axis)
+        else:
+            batch = datasource.collect(cfg.batch_size, horizon, generator=generator)
+            if rows is not None:
+                batch = tuple(x[rows] for x in batch)
+        if horizon not in steps:
+            steps[horizon] = make_train_step(cfg, horizon, mesh_and_rules)
+        state, metrics = steps[horizon](state, batch, LossNoise(generator), theta,
+                                        cf_active)
         if train_iter % nan_check_every == 0:
             loss_val = float(metrics["loss"])
             if loss_val != loss_val:  # NaN

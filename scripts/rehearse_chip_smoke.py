@@ -9,6 +9,7 @@
     python3 scripts/rehearse_chip_smoke.py --zoo-only    # phase 10 alone
     python3 scripts/rehearse_chip_smoke.py --distill-only  # phase 11 alone
     python3 scripts/rehearse_chip_smoke.py --replay-only   # phase 12 alone
+    python3 scripts/rehearse_chip_smoke.py --mesh-only     # phase 13 alone
 
 The script's control flow, shapes and checks run with every CUDA call
 mapped to the CPU: ``torch.Generator(device="cuda")`` and
@@ -26,7 +27,8 @@ its ``distill_student`` process in this one (so that its launches are
 counted) at 4 iterations, B = 2, a B = 4 x 14 gate, without holding the
 falling BCE or the gates; the host-replay phase stitches with the native
 library built by ``cc`` here, at B = 4, with phase 6's training shrunk the
-same way.  Every time it prints is a CPU time or a stub,
+same way; the mesh phase makes its one-process group with gloo on the
+CPU and runs its pipeline over three CPU devices.  Every time it prints is a CPU time or a stub,
 never a card's.  It finds faults of control flow before a card is used;
 the numbers of the checks (losses, curves, round trips) are the CPU's.
 """
@@ -96,9 +98,15 @@ def main() -> int:
                     help="run phase 11 (making a student) alone")
     ap.add_argument("--replay-only", action="store_true",
                     help="run phase 12 (the host data path) alone")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phase 13 (the device mesh, the pipeline) alone")
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
+    if args.mesh_only:
+        # the command line's process has no width flag: its checkpoint is
+        # at the default width, which the phase's template must match
+        args.hidden = 128
 
     map_cuda_to_cpu()
     import chip_smoke as cs
@@ -154,7 +162,9 @@ def main() -> int:
             return types.SimpleNamespace(returncode=0, stdout=out.getvalue(), stderr="")
         return run(argv + ["--platform", "cpu"], **kw)
 
-    cs.subprocess = types.SimpleNamespace(run=run_on_cpu)
+    cs.subprocess = types.SimpleNamespace(
+        run=run_on_cpu, PIPE=subprocess.PIPE,
+        Popen=lambda argv, **kw: subprocess.Popen(list(argv) + ["--platform", "cpu"], **kw))
     cs.DISTILL_ARGV = ["--env", cs.ENV, "--teacher", cs.BUNDLE, "--hidden", "48",
                        "--iters", "4", "--qat-from", "0.5", "--qat-recal", "1",
                        "--gt-iters", "2", "--gt-horizon", "12", "--batch-size", "2",
@@ -163,6 +173,20 @@ def main() -> int:
     cs.GATE_TIMESTEPS = 14
     cs.DISTILL_LOSS_WINDOW, cs.HOLD_GATE = 0, False
     cs.PROFILE_DISTILL = {"batch": 2, "rollout": 3, "horizon": 12}
+    cs.MESH_DEVICE, cs.PIPE_DEVICES = "cpu", ("cpu",) * 3
+    cs.MESH_ITERS, cs.MESH_EVAL_TIMESTEPS, cs.MESH_STEP_ITERS = 3, 8, 3
+    cs.MESH_BATCH = args.batch
+    # the command line's own process counts the evaluation's plain-path calls
+    cs.MESH_RUNNER = cs.MESH_RUNNER.replace("cli.main(sys.argv[1:])", """
+from scmgan_tpu_torch.analysis import mse
+def counting(fn):
+    def wrapped(*a, **k):
+        fn.launches += 1
+        return fn(*a, **k)
+    return wrapped
+mse.fused_transition = counting(fused_transition)
+mse.fused_decode = counting(fused_decode)
+cli.main(sys.argv[1:])""")
 
     t0 = time.perf_counter()
     if args.train_only:
@@ -173,6 +197,11 @@ def main() -> int:
         model = cs.load_model(cs.BUNDLE, device="cuda")
         print("launches", cs.replay_phase(model, 16, ([1.0] * 20, [1.0] * 20), {},
                                           ["prediction_01_iter_000010.avi"])["launches"])
+        rc = 0
+    elif args.mesh_only:
+        model = cs.load_model(cs.BUNDLE, device="cuda")
+        ds = datasource.allocate_datasource(cs.ENV, seed=cs.SEED, device="cpu")
+        print("launches", cs.mesh_phase(model, ds)["launches"])
         rc = 0
     elif args.mpc_only:
         print("launches", cs.mpc_phase()["launches"])

@@ -4,8 +4,8 @@ scmgan_tpu_torch.cli.main) against scmgan_tpu.cli.main on the CPU.
 The parser and the Config it builds equal JAX's; a ``--platform cpu`` run
 resumes from a checkpoint the JAX package wrote and writes one the JAX
 package loads; ``--evaluate`` runs the evaluation, the causal graph and the
-Higgins metric; the student gate, the ``--mesh`` refusal and the default
-device.  The runs use gridworld at hidden 16 (``config_from_args`` is
+Higgins metric; the student gate, ``--mesh`` in a plain process and the
+default device.  The runs use gridworld at hidden 16 (``config_from_args`` is
 wrapped to narrow the Config, as the command line has no width flag) and a
 recorder in place of ``play``: the real episodes run on the card.
 """
@@ -83,9 +83,14 @@ def test_config_from_args_matches_jax(argv):
         assert getattr(ours, name) == getattr(theirs, name), name
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1.9"):
-        cli.main(["--env", "gridworld", "--platform", "cpu", "--mesh", "2x1"])
+def test_mesh_2x1_alone_raises_world_size(tmp_path):
+    """Two processes' mesh in one plain process: the WORLD_SIZE error,
+    before anything is made (the mesh runs: test_torch_parallel_cli.py)."""
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 processes; WORLD_SIZE is 1"):
+        cli.main(["--env", "gridworld", "--platform", "cpu", "--mesh", "2x1",
+                  "--out-dir", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
+    assert os.listdir(tmp_path) == []
 
 
 def test_default_device_is_cuda(monkeypatch):

@@ -40,7 +40,7 @@ BF16_LOSS_RTOL = 1e-2
 BF16_GRAD_NORM_RTOL = 5e-2
 
 
-class JaxKeyNoise:
+class JaxKeyNoise(tl.LossNoise):
     """``LossNoise`` replaying ``scmgan_tpu.train.losses``'s key schedule:
     ``key, scan_key = split(key)``, ``split(scan_key, n_steps)`` and
     ``k_trans, k_enc, k_lo = split(k_t, 3)`` per step (losses.py:162,226);

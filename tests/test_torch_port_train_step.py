@@ -57,8 +57,6 @@ def test_config_matches_jax():
     theirs = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     assert ours == theirs
     assert Config().pdtype == torch.float32 and Config().cdtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="Queue 1.9"):
-        Config(mesh_shape=(2, 1))
 
 
 def test_init_world_model_matches_jax_tree_and_bounds():
