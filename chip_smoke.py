@@ -174,19 +174,42 @@ Phases:
      |p - 0.5| <= 1e-5 (counted), ms per call beside the unsharded cuDNN
      transition and the ``fused_transition`` kernel; (d) the spatial
      transition on the one-process ring bit-equal to the unsharded one;
-  14. a ``kernels`` JSON line (launches summed over the main paths), the
+  14. every hidden width up to 128 and any action count (``shapes_phase``;
+     both transition kernels run any width at the next multiple of 16 on
+     zero-padded operands, and take any action count): (a) both kernels
+     against their plain versions with random weights at hidden 16, 32, 50,
+     96, 104 and 112 with 5 actions and at hidden 128 with 18, at B = 100,
+     64x64 and B = 640, 16x16 (the bf16 kernel's two heads to phase 3's
+     tolerance; the int8 kernel in a ``calibrated_qt`` packing and the three
+     static ones, 0 bits apart), each call's launch counted; (b)
+     ``python -m scmgan_tpu_torch.cli.distill_student --hidden 96`` on
+     minipacman_cf in this process (20 iterations, one gate seed): its
+     ``fidelity.json`` written, its gate's launches as implied, the gate
+     delta printed, not held; (c) ``--env centipede`` (18 actions) on a
+     stand-in ALE that this script puts in ``sys.modules`` (the machine has
+     no ``atari_py``): 4 training iterations at the Config's width with the
+     evaluation hook, then ``--evaluate --evaluations 0``, launches as
+     implied, the free-run's first 10 steps held against the plain path
+     (5%), and one timed plan at the records' reference beam (lookahead 2,
+     depth 12: 5,832 beams) through the bf16 kernel;
+  15. a ``kernels`` JSON line (launches summed over the main paths), the
      card line, and the result line.
+
+Phase 7 also times both kernels at hidden 16, 32, 50, 96, 104 and 112
+(random weights, 5 actions, B = 100, 64x64) beside the plain versions,
+cuDNN and the bound.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
 A watchdog ends a hang with a traceback and a non-zero exit (armed for
-phases 1-8, and again for phases 9, 10, 11, 12 and 13).
+phases 1-8, and again for phases 9, 10, 11, 12, 13 and 14).
 """
 
 from __future__ import annotations
 
 import contextlib
 import faulthandler
+import functools
 import inspect
 import io
 import itertools
@@ -245,7 +268,9 @@ from scmgan_tpu_torch.ops.kernels.fused_decoder import (
     pack_decoder_weights,
 )
 from scmgan_tpu_torch.ops.kernels.fused_transition import (
+    HIDDENS,
     fused_transition,
+    kernel_hidden,
     pack_transition_weights,
     philox_uniform,
     transition_plain,
@@ -424,6 +449,13 @@ def onehot_actions(rng, b, num_actions):
     return torch.from_numpy(a).cuda()
 
 
+@functools.lru_cache(maxsize=8)
+def host_uniforms(seed: int, shape: tuple) -> torch.Tensor:
+    """The kernels' sample-head uniforms for ``shape``, drawn by the host's
+    Philox once per seed and shape (a second or so at B = 100, 64x64)."""
+    return torch.from_numpy(philox_uniform(seed, shape))
+
+
 def check_transition(pt, z, a, latent, label=""):
     """Hold the bf16 transition kernel against its plain bf16 version,
     element by element, on latents ``z`` and one-hot actions ``a``; raise
@@ -447,8 +479,7 @@ def check_transition(pt, z, a, latent, label=""):
 
         seed = SEED % (1 << 31)
         got_s = fused_transition(pt, z, a, sample=True, seed=seed)
-        u = torch.from_numpy(philox_uniform(
-            seed, (*z.shape[:3], pt["latent_pad"]))).cuda()
+        u = host_uniforms(seed, (*z.shape[:3], pt["latent_pad"])).cuda()
         want_s = transition_plain(pt, z, a, u=u, dtype=bf16)
         u = u[..., :latent]
         diff_s = got_s != want_s
@@ -496,7 +527,7 @@ def check_int8(name, packed, z, a, head):
         want = i8.int8_transition_plain(packed, z, a, head=head)
         n_diff = int((got != want).sum())
         got_s = i8.int8_transition(packed, z, a, head="sample", seed=seed)
-        u = torch.from_numpy(philox_uniform(seed, (*z.shape[:3], packed["latent_pad"]))).cuda()
+        u = host_uniforms(seed, (*z.shape[:3], packed["latent_pad"])).cuda()
         want_s = i8.int8_transition_plain(packed, z, a, head="sample", u=u)
         p = torch.sigmoid(i8.int8_transition_logits(packed, z, a))[..., :z.shape[-1]]
         diff_s = got_s != want_s
@@ -515,25 +546,32 @@ def check_int8(name, packed, z, a, head):
 
 
 def int8_cost(packed, z, a):
-    """(operations, bytes) of one int8 step on latents ``z`` as the caller
-    hands them: real channels only (no K or N padding)."""
+    """(operations, bytes) of one int8 step on the int8 latents ``z`` that
+    the kernel takes: real channels only (no K or N padding); conv1's
+    one-hot action channels are the per-sample bias the kernel adds
+    (``b * actions * hidden`` products), not a conv."""
+    if z.dtype != torch.int8:
+        raise TypeError(f"int8_cost counts int8 latents; got {z.dtype}")
     b, h, w, latent = z.shape
     hid, acts = packed["hidden"], packed["num_actions"]
-    ops = 2 * b * h * w * 9 * ((latent + acts) * hid + 5 * hid * hid
-                                + 2 * hid * latent)
+    ops = (2 * b * h * w * 9 * (latent * hid + 5 * hid * hid + 2 * hid * latent)
+           + 2 * b * acts * hid)
     moved = nbytes(z, a, z, *i8._operand_tensors(packed))
     return ops, moved
 
 
 def transition_cost(pt, z, a):
-    """(FLOPs, bytes) of one bf16 transition step (real channels)."""
+    """(FLOPs, bytes) of one bf16 transition step (real channels; the action
+    channels as conv1's per-sample bias, as in ``int8_cost``)."""
     b, h, w, latent = z.shape
     hid, acts = pt["w2"].shape[-1], a.shape[-1]
-    flops = 2 * b * h * w * 9 * ((latent + acts) * hid + 3 * hid * hid
-                                 + 2 * hid * hid + 2 * hid * latent)
-    # latents in and out (in z's dtype), actions, packed weights and biases
+    flops = (2 * b * h * w * 9 * (latent * hid + 3 * hid * hid + 2 * hid * hid
+                                  + 2 * hid * latent)
+             + 2 * b * acts * hid)
+    # latents in and out (in z's dtype), actions, weights and biases at the
+    # model's width
     moved = (nbytes(z, a, z) + nbytes(*(pt[f"w{i}"] for i in range(1, 7)))
-             + nbytes(*(pt[f"b{i}"] for i in range(1, 7))))
+             + nbytes(*(pt[f"b{i}"][:pt[f"w{i}"].shape[-1]] for i in range(1, 7))))
     return flops, moved
 
 
@@ -550,7 +588,7 @@ def library_transition(packed, z, a):
     ws = {i: packed[f"w{i}"].reshape(3, 3, *packed[f"w{i}"].shape[1:])
           .permute(3, 2, 0, 1) for i in range(1, 7)}
     ws[1] = ws[1][:, :x.shape[1]]
-    bs = {i: packed[f"b{i}"].to(torch.bfloat16) for i in range(1, 7)}
+    bs = {i: packed[f"b{i}"][:ws[i].shape[0]].to(torch.bfloat16) for i in range(1, 7)}
 
     def conv(i, inp):
         return F.conv2d(F.pad(inp, (1, 1, 1, 1), mode="circular"), ws[i], bs[i])
@@ -994,7 +1032,7 @@ def mpc_times(models, qts):
                 "int8_ms": cuda_ms(lambda: i8.int8_transition(qt.packed, zi, a, head="logit")),
                 "int8_plain_ms": cuda_ms(lambda: i8.int8_transition_plain(
                     qt.packed, zi, a, head="logit"), iters=3),
-                "int8_bound": bound(*int8_cost(qt.packed, z, a), peak=PEAK_INT8_OPS)}
+                "int8_bound": bound(*int8_cost(qt.packed, zi, a), peak=PEAK_INT8_OPS)}
             r = rows[key]
             say(f"[mpc-time] {key}: bf16 kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
                 f"cuDNN {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} ({r['bound'][1]}); "
@@ -2860,6 +2898,245 @@ def mesh_phase(model, ds):
 
 
 
+# ---------------------------------------------------------------------------
+# every hidden width and action count: both transition kernels at the widths
+# no shipped model has, a student made at h96, centipede's 18 actions
+# ---------------------------------------------------------------------------
+
+# (hidden, actions): the kernels' multiples of 16 that no shipped model has
+# (16, 32, 96, 112), widths between them (50, 104: run at the next multiple
+# on zero-padded operands), and ALE's full action set at the teacher's width.
+SHAPE_CASES = ((16, 5), (32, 5), (50, 5), (96, 5), (104, 5), (112, 5), (128, 18))
+# (batch, side): the free-run's and the MPC beam's shapes
+SHAPE_BATCHES = ((BATCH, 64), (MPC_GRID_EPISODES * 64, 16))
+# phase 7's rows at these widths (5 actions, B = 100, 64x64)
+SHAPE_TIME_WIDTHS = (16, 32, 50, 96, 104, 112)
+# (b) a student at h96 from minipacman_cf, made as phase 11 (c) makes one but
+# with 20 iterations: its gate is printed, not held
+SHAPES_DISTILL_ARGV = ["--env", ENV, "--teacher", BUNDLE, "--hidden", "96", "--iters", "20",
+                       "--qat-from", "0.5", "--qat-recal", "10", "--eval-seeds", "1"]
+# (c) centipede on a stand-in ALE: a few training iterations at the Config's
+# width with the evaluation hook, then the evaluation
+CENTIPEDE_ARGV = ["--env", "centipede", "--train-iters", "4", "--iters-per-video", "4",
+                  "--eval-batch-size", str(BATCH), "--eval-timesteps", "30", "--no-videos"]
+CENTIPEDE_EPISODE_STEPS = 200
+
+
+class StandInALE:
+    """A stand-in for ``atari_py`` (the card's machine has no ALE), put in
+    ``sys.modules`` for phase 14 (c): a deterministic emulator whose screen
+    holds a red band falling one row a frame and a green column that the
+    actions move, episodes of CENTIPEDE_EPISODE_STEPS steps (two acts a
+    step), a reward for FIRE every third act."""
+
+    class ALEInterface:
+        def __init__(self):
+            self.t, self.x = 0, 76
+
+        def loadROM(self, path):
+            self.rom = path
+
+        def reset_game(self):
+            self.t, self.x = 0, 76
+
+        def act(self, a):
+            self.t += 1
+            self.x = (self.x + 4 * (a % 3 - 1)) % 152
+            return float(a == 1 and self.t % 3 == 0)
+
+        def getScreenRGB2(self):
+            frame = np.zeros((210, 160, 3), np.uint8)
+            y = self.t % 200
+            frame[y:y + 10, :, 0] = 255
+            frame[:, self.x:self.x + 8, 1] = 255
+            return frame
+
+        def game_over(self):
+            return self.t >= 2 * CENTIPEDE_EPISODE_STEPS
+
+        def lives(self):
+            return 3
+
+    @staticmethod
+    def get_game_path(name):
+        return f"/roms/{name}.bin"
+
+
+def random_transition(hidden, num_actions, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return init_transition(gen, 16, num_actions, hidden=hidden)
+
+
+def shapes_kernel_checks(model, rng):
+    """(a) both transition kernels against their plain versions at every
+    case of SHAPE_CASES and shape of SHAPE_BATCHES: the bf16 kernel's two
+    heads, the int8 kernel in a calibrated packing (``calibrated_qt``) and
+    the three static ones, each call's launch counted."""
+    checks, int8_checks = [], []
+    for hidden, acts in SHAPE_CASES:
+        params = random_transition(hidden, acts, SEED + hidden + acts)
+        pt = pack_transition_weights(params, 16, acts)
+        qt = calibrated_qt(model._replace(transition=params), binary_latents(rng, 1), acts)
+        packings = {"calibrated": (qt.packed, "logit"),
+                    **{f"static {order}": (pack(params), "sigmoid")
+                       for order, pack in INT8_PACKINGS.items()}}
+        for b, hw in SHAPE_BATCHES:
+            z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, acts)
+            before = counters()
+            checks.append(check_transition(pt, z, a, 16, f" (hidden {hidden}, {acts} actions, "
+                                                         f"{hw}x{hw})"))
+            for name, (packed, head) in packings.items():
+                int8_checks.append(check_int8(f"h{hidden} a{acts} {name}", packed,
+                                              z.to(torch.int8), a, head))
+            moved = {k: v - before[k] for k, v in counters().items()}
+            want = {"fused_transition": 2, "fused_decode": 0,
+                    "int8_transition": 2 * len(packings)}
+            if moved != want:
+                raise AssertionError(f"shapes (a): hidden {hidden}, {acts} actions, B = {b}: "
+                                     f"launches {moved}, the checks imply {want}")
+    return checks, int8_checks
+
+
+def student_h96():
+    """(b) ``distill_student --hidden 96`` in this process (its launches
+    counted), at PyTorch's default precision as the command runs."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_student_h96_")
+    argv = [*SHAPES_DISTILL_ARGV, *GATE_ARGV, "--out", out]
+    zero_counters()
+    torch.cuda.synchronize()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log), pytorch_default_precision():
+            res = distill_student.main(argv)
+    except BaseException:
+        say(log.getvalue()[-3000:])
+        raise
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    run = res["run"]
+    with open(os.path.join(out, "fidelity.json")) as f:
+        fid = json.load(f)
+    zero = {k: 0 for k in counters()}
+    say(f"[shapes] (b) distill_student {' '.join(argv)}: {wall:.3f} s in this process; "
+        f"stage seconds {run['seconds']}; launches {launches}; BCE first {run['bce'][0]:.5f} "
+        f"last {run['bce'][-1]:.5f}; the gate (not held after "
+        f"{SHAPES_DISTILL_ARGV[SHAPES_DISTILL_ARGV.index('--iters') + 1]} iterations): "
+        f"mse10_delta_pct {fid['mse10_delta_pct']:.4f}, int8_delta_pct at t+10 "
+        f"{fid['int8_delta_pct']['10']:.4f}, within_1pct {fid['within_1pct']}")
+    if fid["hidden"] != 96 or res["student"]["conv2"]["w"].shape[-1] != 96:
+        raise AssertionError("shapes (b): the student is not 96 wide")
+    if run["launches"] != {"distill": zero, "fidelity": gate_launches(1)} \
+            or launches != gate_launches(1):
+        raise AssertionError(f"shapes (b): launches {run['launches']}, the run implies "
+                             f"{gate_launches(1)} in its gate")
+    if not np.isfinite(run["bce"] + [v for k in ("teacher_mse", "student_int8_mse")
+                                     for v in fid[k].values()]).all():
+        raise AssertionError("shapes (b): a non-finite loss or gate MSE")
+    return {"wall": wall, "launches": launches, "fidelity": fid}
+
+
+def centipede_run():
+    """(c) centipede's 18 actions through the command line on the stand-in
+    ALE: training with its evaluation hook, ``--evaluate``, the free-run's
+    first steps against the plain path, one plan at the reference beam."""
+    saved = sys.modules.get("atari_py")
+    sys.modules["atari_py"] = StandInALE
+    try:
+        out = tempfile.mkdtemp(prefix="chip_smoke_centipede_")
+        argv = [*CENTIPEDE_ARGV, "--seed", str(SEED), "--out-dir", out]
+        cfg = cli_config(argv)
+        _, train_launches, train_wall = run_cli("shapes (c): centipede train", argv)
+        n_evals = sum(1 for i in range(cfg.start_iter, cfg.train_iters + 1)
+                      if i % cfg.iters_per_video == 0)
+        check_launches("shapes (c) train", train_launches, {
+            k: n_evals * v for k, v in evaluate_launches(cfg, videos=False).items()})
+        eval_argv = [*CENTIPEDE_ARGV, "--evaluate", "--evaluations", "0", "--load-from", out,
+                     "--seed", str(SEED), "--out-dir", tempfile.mkdtemp(prefix="chip_smoke_cent_")]
+        res, eval_launches, eval_wall = run_cli("shapes (c): centipede --evaluate", eval_argv)
+        check_launches("shapes (c) evaluate", eval_launches,
+                       evaluate_launches(cli_config(eval_argv), videos=False))
+        curve = np.asarray(res["evaluate"][0])
+        model = res["state"].params
+        acts = model.transition["conv1"]["w"].shape[2] - cfg.latent_dim
+        if acts != 18 or not np.isfinite(res["evaluate"]).all():
+            raise AssertionError(f"shapes (c): {acts} actions, or a non-finite curve")
+
+        ds = allocate_datasource("centipede", seed=SEED, device="cuda")
+        try:
+            pt = pack_transition_weights(model.transition, cfg.latent_dim, acts)
+            pd = pack_decoder_weights(model.decoder, cfg.latent_dim)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            with torch.inference_mode():
+                # one frame past the window: a stitched clip's last step is
+                # done, and masked
+                batch = ds.collect(BATCH, COMPARE_STEPS + 3, generator=gen)
+                k_curve = _free_run_stats(model, batch, acts)[0][:COMPARE_STEPS].cpu().numpy()
+                p_curve = _free_run_stats(
+                    model, batch, acts,
+                    transition_fn=lambda z, a: transition_plain(pt, z, a, dtype=torch.bfloat16),
+                    decode_fn=lambda z: decode_plain(pd, z, dtype=torch.bfloat16)
+                )[0][:COMPARE_STEPS].cpu().numpy()
+            z = seed_latents(model, ds, 1, SEED)
+        finally:
+            ds.close()
+        say(f"[shapes] (c) centipede ({acts} actions, {z.shape[1]}x{z.shape[2]}, hidden "
+            f"{cfg.hidden_dim}): train {train_wall:.3f} s, --evaluate {eval_wall:.3f} s; "
+            f"evaluation pixel MSE first {curve[0]:.6g} last {curve[-1]:.6g}")
+        say(f"[shapes] (c) free-run pixel MSE, first {COMPARE_STEPS} steps: kernels "
+            f"{np.array2string(k_curve, precision=6)}")
+        say(f"[shapes] (c)                                        plain   "
+            f"{np.array2string(p_curve, precision=6)}")
+        if not np.allclose(k_curve, p_curve, rtol=CURVE_RTOL, atol=CURVE_ATOL):
+            raise AssertionError("shapes (c): the centipede free-run disagrees with the plain path")
+
+        planner = make_planner(model, acts, lookahead=MPC_LOOKAHEAD, rollout_depth=MPC_DEPTH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        action, scores = planner(z)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        plan_launches = counters()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        beams = acts ** (MPC_LOOKAHEAD + 1)
+        say(f"[shapes] (c) one plan at lookahead {MPC_LOOKAHEAD}, depth {MPC_DEPTH} ({beams} "
+            f"beams of {z.shape[1]}x{z.shape[2]} latents): {plan_s:.3f} s, peak "
+            f"{peak:.2f} GiB; action {action}, scores finite "
+            f"{bool(torch.isfinite(scores).all())}; launches {plan_launches}")
+        want = {"fused_transition": MPC_DEPTH + 1, "fused_decode": 0, "int8_transition": 0}
+        check_launches("shapes (c) plan", plan_launches, want)
+        if scores.shape != (acts,) or not torch.isfinite(scores).all():
+            raise AssertionError("shapes (c): the plan's scores are not finite")
+    finally:
+        if saved is None:
+            sys.modules.pop("atari_py", None)
+        else:
+            sys.modules["atari_py"] = saved
+    return {"launches": add_launches(train_launches, eval_launches, plan_launches),
+            "plan_s": plan_s, "peak_gib": peak, "walls": (train_wall, eval_wall)}
+
+
+def shapes_phase(model):
+    """Every hidden width up to 128 and any action count on the card:
+    (a) both transition kernels against their plain versions at SHAPE_CASES;
+    (b) a student made at h96; (c) centipede's 18 actions.  Returns the
+    launches of (b) and (c), the kernel checks and the walls."""
+    t_phase = time.perf_counter()
+    checks, int8_checks = shapes_kernel_checks(model, np.random.default_rng(SEED + 15))
+    t_checks = time.perf_counter() - t_phase
+    made = student_h96()
+    cent = centipede_run()
+    walls = {"checks": t_checks, "student_h96": made["wall"], "centipede_plan": cent["plan_s"],
+             "phase": time.perf_counter() - t_phase}
+    say("[shapes] wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return {"launches": add_launches(made["launches"], cent["launches"]), "checks": checks,
+            "int8_checks": int8_checks, "walls": walls, "plan_s": cent["plan_s"],
+            "peak_gib": cent["peak_gib"]}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -2882,8 +3159,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     lib = _build.library()
     say(f"[build] {lib_path.name} in {build_s:.2f} s")
-    smem = {f"conv3x3_wgmma<{n},": lib.scm_transition_smem(n) for n in (16, 48, 64, 80, 128)}
-    smem.update({f"conv3x3_s8<{n},": lib.scm_int8_smem(n) for n in (16, 48, 64, 80, 128)})
+    smem = {f"conv3x3_wgmma<{n},": lib.scm_transition_smem(n) for n in HIDDENS}
+    smem.update({f"conv3x3_s8<{n},": lib.scm_int8_smem(n) for n in HIDDENS})
     smem["decode_kernel"] = lib.scm_decode_smem()
     for r in _build.ptxas_report():
         dyn = next((v for k, v in smem.items() if r["kernel"].startswith(k)), None)
@@ -3103,7 +3380,7 @@ def main() -> int:
                 "plain_ms": cuda_ms(lambda: i8.int8_transition_plain(
                     packed, zi, a, head=head), iters=3),
                 "library_ms": None,
-                "bound": bound(*int8_cost(packed, z, a), peak=PEAK_INT8_OPS)}
+                "bound": bound(*int8_cost(packed, zi, a), peak=PEAK_INT8_OPS)}
         # the int8 kernel in every epilogue order (static packings), beside
         # the bf16 kernel at the same width, in this run
         int8_orders = {}
@@ -3115,6 +3392,22 @@ def main() -> int:
             row["bf16_ms"] = times[bf16_key]["ms"]
             int8_orders[width] = row
         int8_orders[48]["calibrated_joint"] = times["transition_int8_v2"]["ms"]
+        # both kernels at the widths no shipped model has (random weights;
+        # 50 and 104 run at 64 and 112 on zero-padded operands)
+        width_times = {}
+        for hidden in SHAPE_TIME_WIDTHS:
+            params = random_transition(hidden, num_actions, SEED + hidden)
+            pw = pack_transition_weights(params, latent, num_actions)
+            qw = quantize_transition(params).packed
+            width_times[hidden] = {
+                "ms": cuda_ms(lambda: fused_transition(pw, z, a)),
+                "plain_ms": cuda_ms(lambda: transition_plain(pw, z, a, dtype=bf16), iters=5),
+                "library_ms": cuda_ms(lambda: library_transition(pw, z, a)),
+                "bound": bound(*transition_cost(pw, z, a)),
+                "int8_ms": cuda_ms(lambda: i8.int8_transition(qw, zi, a, head="sigmoid")),
+                "int8_plain_ms": cuda_ms(lambda: i8.int8_transition_plain(
+                    qw, zi, a, head="sigmoid"), iters=3),
+                "int8_bound": bound(*int8_cost(qw, zi, a), peak=PEAK_INT8_OPS)}
     d_flops = 2 * b * h * w * 9 * (latent * pd["w1"].shape[-1]
                                    + pd["w1"].shape[-1] * color)
     d_bytes = (nbytes(z, pd["w1"], pd["w2"], pd["b1"], pd["b2"])
@@ -3129,6 +3422,13 @@ def main() -> int:
         say(f"[time] int8 kernel at hidden {width}, ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k != "bf16_ms")
             + f"; bf16 kernel at hidden {width}: {row['bf16_ms']:.4f}")
+    for hidden, r in width_times.items():
+        say(f"[time] hidden {hidden} (kernel width {kernel_hidden(hidden)}, random weights): "
+            f"bf16 kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
+            f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} ({r['bound'][1]}; "
+            f"{100 * r['bound'][0] / r['ms']:.1f}% of bound); int8 kernel (static joint) "
+            f"{r['int8_ms']:.4f} ms, plain {r['int8_plain_ms']:.4f}, bound "
+            f"{r['int8_bound'][0]:.4f} ({r['int8_bound'][1]})")
 
     # 8. the fourth main path: MPC planning and play (gridworld_cf, pong_cf_60k)
     mpc = mpc_phase()
@@ -3160,7 +3460,13 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     mesh = mesh_phase(model, ds)
 
-    # 14. the kernels line.  launches: the sum over the main paths, each
+    # 14. every hidden width up to 128 and any action count: the kernels at
+    # the widths no shipped model has, a student made at h96, centipede
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    shapes = shapes_phase(model)
+    t_err = max([t_err] + [c["t_err"] for c in shapes["checks"]])
+
+    # 15. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
     def row(name, key, source, replaces, err, **extra):
         t = times[key]
@@ -3173,7 +3479,8 @@ def main() -> int:
                    "zoo": zoo["launches"][counter],
                    "distill": made["launches"][counter],
                    "host_replay": replay["launches"][counter],
-                   "mesh": mesh["launches"][counter]}
+                   "mesh": mesh["launches"][counter],
+                   "shapes": shapes["launches"][counter]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
@@ -3181,6 +3488,12 @@ def main() -> int:
                 "bound_by": t["bound"][1], "library_ms": t["library_ms"], **extra}
 
     h48 = times["fused_transition_h48"]
+    widths = {h: {"ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                  "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+              for h, r in width_times.items()}
+    widths_int8 = {h: {"ms": r["int8_ms"], "plain_ms": r["int8_plain_ms"],
+                       "bound_ms": r["int8_bound"][0], "bound_by": r["int8_bound"][1]}
+                   for h, r in width_times.items()}
     v2 = times["transition_int8_v2"]
     serving = {"packing": "transition_int8_v2, calibrated h48 student",
                "ms": v2["ms"], "plain_ms": v2["plain_ms"], "bound_ms": v2["bound"][0],
@@ -3194,6 +3507,7 @@ def main() -> int:
             mismatch_fraction=t_mismatch,
             h48={"ms": h48["ms"], "plain_ms": h48["plain_ms"],
                  "bound_ms": h48["bound"][0], "library_ms": h48["library_ms"]},
+            widths=widths,
             mpc_shapes={k: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                             "library_ms": r["library_ms"], "bound_ms": r["bound"][0]}
                         for k, r in mpc["times"].items()}),
@@ -3206,6 +3520,7 @@ def main() -> int:
               mismatch_fraction=int8_mismatch[name],
               library_note="no PyTorch call computes an int8 convolution",
               orders_ms=int8_orders[128], serving_h48=serving,
+              widths_static_joint=widths_int8,
               mpc_shapes_calibrated={k: {"ms": r["int8_ms"], "plain_ms": r["int8_plain_ms"],
                                          "bound_ms": r["int8_bound"][0]}
                                      for k, r in mpc["times"].items()})

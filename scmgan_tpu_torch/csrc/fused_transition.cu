@@ -40,13 +40,18 @@
 
 using namespace scm_tr;
 
-// Instantiated in transition_h{48,64,80,128}.cu and transition_head.cu.
+// Instantiated in transition_h{16,32,48,64,80,96,112,128}.cu and
+// transition_head.cu.
 #define SCM_EXTERN(BN, HEAD)                                                   \
   extern template cudaError_t scm_tr::launch_conv<BN, HEAD>(                  \
       const ConvArgs&, const CUtensorMap&, cudaStream_t);
+SCM_EXTERN(16, LRELU)
+SCM_EXTERN(32, LRELU)
 SCM_EXTERN(48, LRELU)
 SCM_EXTERN(64, LRELU)
 SCM_EXTERN(80, LRELU)
+SCM_EXTERN(96, LRELU)
+SCM_EXTERN(112, LRELU)
 SCM_EXTERN(128, LRELU)
 SCM_EXTERN(16, THRESHOLD)
 SCM_EXTERN(16, SAMPLE)
@@ -108,9 +113,10 @@ cudaError_t step(ConvArgs a, const void* z, const void* act, const void* wact,
 // kernel-layout weights of pack_transition_weights ((chunk, tap, cout, 64)
 // bf16), wact conv1's action weights summed over taps ((actions, hidden)
 // f32), biases f32.  tw, tws, rows, row_blocks, col_blocks are the tile plan
-// of ops/kernels/fused_transition.py::tile_plan.  Requires hidden in
-// {48, 64, 80, 128} (the shipped teacher and students), latent == latent_pad
-// == 16 and at most 16 actions.  Returns the first launch error, or 0.
+// of ops/kernels/fused_transition.py::tile_plan.  Requires hidden a multiple
+// of 16 up to 128 (pack_transition_weights pads a model's width to one with
+// zero channels) and latent == latent_pad == 16; any action count.  Returns
+// the first launch error, or 0.
 extern "C" int scm_transition_step(
     const void* z, const void* act,
     const void* k1, const void* k2, const void* k3, const void* k4,
@@ -121,7 +127,7 @@ extern "C" int scm_transition_step(
     int batch, int height, int width, int latent, int actions, int hidden,
     int latent_pad, int tw, int tws, int rows, int row_blocks, int col_blocks,
     int sample, unsigned long long seed, void* stream_handle) {
-  if (latent != 16 || latent_pad != 16 || actions < 0 || actions > MAX_ACTIONS ||
+  if (latent != 16 || latent_pad != 16 || actions < 0 ||
       batch < 1 || height < 1 || width < 1 || tw < 1 || tw > 64 || rows < 1 ||
       (long long)(rows + 2) * tws > A_SLOTS || rows * tw > TILE_M ||
       (long long)row_blocks * rows < height || (long long)col_blocks * tw < width)
@@ -138,7 +144,8 @@ extern "C" int scm_transition_step(
     return (int)step<HID>(a, z, act, wact, w, b, h1, h2, h3, h4, out, latent,  \
                           sample, stream);
   switch (hidden) {
-    SCM_STEP(48) SCM_STEP(64) SCM_STEP(80) SCM_STEP(128)
+    SCM_STEP(16) SCM_STEP(32) SCM_STEP(48) SCM_STEP(64) SCM_STEP(80) SCM_STEP(96)
+    SCM_STEP(112) SCM_STEP(128)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SCM_STEP
@@ -149,9 +156,12 @@ extern "C" int scm_transition_step(
 extern "C" int scm_transition_smem(int bn) {
   switch (bn) {
     case 16: return Layout<16>::ALLOC;
+    case 32: return Layout<32>::ALLOC;
     case 48: return Layout<48>::ALLOC;
     case 64: return Layout<64>::ALLOC;
     case 80: return Layout<80>::ALLOC;
+    case 96: return Layout<96>::ALLOC;
+    case 112: return Layout<112>::ALLOC;
     case 128: return Layout<128>::ALLOC;
     default: return -1;
   }

@@ -93,7 +93,7 @@ struct ConvArgs {
   signed char* out;         // NHWC, cout channels
   int batch, height, width, actions;
   int c0, c1;               // channels of each segment: multiples of 16, at most 128
-  int order, head;          // head: REQUANT at N > 16, else LOGIT / SIGMOID / SAMPLE
+  int order, head;          // head: REQUANT for conv1-5, LOGIT / SIGMOID / SAMPLE for conv6
   int tw, tws, rows;        // tile width, input slots a row, tile rows
   int row_blocks, col_blocks;
   unsigned long long seed;  // sample head
@@ -221,8 +221,9 @@ __device__ __forceinline__ void segment_mma(typename Shape<BN, SPLIT>::Acc& acc,
 }
 
 // The segment's unit count picks the straight-line code: conv1's 16 latent
-// channels (1 unit) or the hidden width at N = hidden; any hidden width at
-// the head (N = 16).
+// channels (1 unit) or the hidden width at N = hidden; any hidden width (1 to
+// 8 units) at N = 16, which serves the head and, at hidden 16, the hidden
+// layers too.
 template <int BN, int SPLIT, int S>
 __device__ __forceinline__ void segment(int u, typename Shape<BN, SPLIT>::Acc& acc,
                                         uint32_t abuf,
@@ -234,10 +235,16 @@ __device__ __forceinline__ void segment(int u, typename Shape<BN, SPLIT>::Acc& a
   segment_mma<BN, SPLIT, UU, S>(acc, abuf, rbase, col, tws, lane, b_stages, full, \
                                  empty, stage, phase)
   if constexpr (BN == 16) {
-    if (u == 3) SCM_SEG(3);
-    else if (u == 4) SCM_SEG(4);
-    else if (u == 5) SCM_SEG(5);
-    else SCM_SEG(8);
+    switch (u) {
+      case 1: SCM_SEG(1); break;
+      case 2: SCM_SEG(2); break;
+      case 3: SCM_SEG(3); break;
+      case 4: SCM_SEG(4); break;
+      case 5: SCM_SEG(5); break;
+      case 6: SCM_SEG(6); break;
+      case 7: SCM_SEG(7); break;
+      default: SCM_SEG(8);
+    }
   } else if constexpr (!SPLIT) {
     if (u == 1) SCM_SEG(1);
     else SCM_SEG(BN / 16);
@@ -487,7 +494,7 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
               y = p.order == SUM_FIRST ? __fadd_rn(__fadd_rn(ya, yb), bias)
                                        : __fadd_rn(__fadd_rn(ya, bias), yb);
             }
-            if (BN != 16) {
+            if (BN != 16 || p.head == REQUANT) {
               // leaky-ReLU (max(y, 0.01 y) is y for y >= 0, else 0.01 y),
               // requant, then clamp to +-127 and round half to even by
               // adding 1.5 * 2^23: the sum's low byte is the int8 (for

@@ -21,7 +21,9 @@
 // of whole image rows and copies their input rows once per input tensor
 // (one 128-byte slot a pixel holds all of a hidden layer's channels); all 9
 // taps read that copy through ldmatrix; K runs over (tap, 16-channel unit)
-// pairs so hidden 48 and 80 waste at most half a step per segment; the
+// pairs so odd unit counts (hidden 16, 48, 80, 112) waste at most half a
+// step per segment, and a width between multiples of 16 runs on zero
+// channels up to the next one (pack_operands pads its operands); the
 // weights stream by TMA into an mbarrier ring from a producer warp; the
 // split orders keep both segments' sums in registers; the epilogue repeats
 // the plain version's f32 roundings in registers.  Still unfused across
@@ -50,13 +52,17 @@
 
 using namespace scm_i8;
 
-// Instantiated in int8_h{48,64,80,128}.cu and int8_head.cu.
+// Instantiated in int8_h{32,48,64,80,96,112,128}.cu and int8_head.cu (N = 16:
+// the head, and the hidden layers at hidden 16).
 #define SCM_EXTERN(BN, SPLIT)                                                  \
   extern template cudaError_t scm_i8::launch_conv<BN, SPLIT>(                 \
       const ConvArgs&, const CUtensorMap&, cudaStream_t);
+SCM_EXTERN(32, 0) SCM_EXTERN(32, 1)
 SCM_EXTERN(48, 0) SCM_EXTERN(48, 1)
 SCM_EXTERN(64, 0) SCM_EXTERN(64, 1)
 SCM_EXTERN(80, 0) SCM_EXTERN(80, 1)
+SCM_EXTERN(96, 0) SCM_EXTERN(96, 1)
+SCM_EXTERN(112, 0) SCM_EXTERN(112, 1)
 SCM_EXTERN(128, 0) SCM_EXTERN(128, 1)
 SCM_EXTERN(16, 0) SCM_EXTERN(16, 1)
 #undef SCM_EXTERN
@@ -156,8 +162,9 @@ cudaError_t step(ConvArgs a, const void* z, const void* act, const void* wact,
 // sigmoid > 0.5, 3 Philox sample keyed by seed.  (tw, tws, rows, row_blocks,
 // col_blocks) is the 256-pixel tile plan of
 // ops/kernels/fused_transition.py::tile_plan, the second five its 128-pixel
-// plan.  Requires hidden in {48, 64, 80, 128}.  Returns the first launch
-// error, or 0.
+// plan.  Requires hidden a multiple of 16 up to 128 (pack_operands pads a
+// model's width to one with zero channels); any action count.  Returns the
+// first launch error, or 0.
 extern "C" int scm_int8_step(
     const void* z, const void* act, const void* wact,
     const void* k1, const void* k2, const void* k3, const void* k4,
@@ -193,7 +200,8 @@ extern "C" int scm_int8_step(
     return (int)step<HID>(a, z, act, wact, w, s, s5b, s6b, b, rq, h1, h2, h3, \
                           h4, out, order, p256, p128, stream);
   switch (hidden) {
-    SCM_STEP(48) SCM_STEP(64) SCM_STEP(80) SCM_STEP(128)
+    SCM_STEP(16) SCM_STEP(32) SCM_STEP(48) SCM_STEP(64) SCM_STEP(80) SCM_STEP(96)
+    SCM_STEP(112) SCM_STEP(128)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SCM_STEP
@@ -204,9 +212,12 @@ extern "C" int scm_int8_step(
 extern "C" int scm_int8_smem(int bn) {
   switch (bn) {
     case 16: return Layout<16>::ALLOC;
+    case 32: return Layout<32>::ALLOC;
     case 48: return Layout<48>::ALLOC;
     case 64: return Layout<64>::ALLOC;
     case 80: return Layout<80>::ALLOC;
+    case 96: return Layout<96>::ALLOC;
+    case 112: return Layout<112>::ALLOC;
     case 128: return Layout<128>::ALLOC;
     default: return -1;
   }

@@ -33,7 +33,9 @@
 //     has completed, while the other tile's group runs.
 //   * Epilogue in registers: bias from shared memory (conv1: plus the
 //     per-sample bias of the one-hot action half, a sum over taps of its
-//     weights, since the conv of a spatially constant map is constant),
+//     weights, since the conv of a spatially constant map is constant; its
+//     (actions, N) table is read from global memory once a tile, so any
+//     action count fits),
 //     leaky-ReLU or sigmoid with the threshold or Philox head, bf16 pairs
 //     through stmatrix into a per-warp staging tile, 16-byte global stores.
 //
@@ -63,7 +65,6 @@ constexpr int TILE_M = 256;             // output pixels a tile
 constexpr int CHUNK = 64;               // input channels a K chunk (128 bytes a pixel)
 constexpr int A_SLOTS = 6 * 66;         // input pixels a chunk buffer holds
 constexpr int A_BYTES = A_SLOTS * 128;
-constexpr int MAX_ACTIONS = 16;
 
 struct ConvArgs {
   const __nv_bfloat16* in0;   // NHWC, c0 channels
@@ -91,7 +92,7 @@ struct Layout {
   static constexpr int STAGE_BYTES = BN * 128;
   static constexpr int STG_PITCH = BN * 2 + 16;           // staging row, bytes
   static constexpr int REST = 2 * A_BYTES + 8 * 16 * STG_PITCH + 3 * BN * 4 +
-                              MAX_ACTIONS * BN * 4 + 2 * MAX_STAGES * 8 + 1024;
+                              2 * MAX_STAGES * 8 + 1024;
   static constexpr int STAGES = (SMEM_MAX - REST) / STAGE_BYTES < MAX_STAGES
                                     ? (SMEM_MAX - REST) / STAGE_BYTES : MAX_STAGES;
   static constexpr int B_OFF = 0;
@@ -99,8 +100,7 @@ struct Layout {
   static constexpr int STG_OFF = A_OFF + 2 * A_BYTES;
   static constexpr int BIAS_OFF = STG_OFF + 8 * 16 * STG_PITCH;
   static constexpr int BIAS2_OFF = BIAS_OFF + BN * 4;       // [2][BN]: per tile
-  static constexpr int WACT_OFF = BIAS2_OFF + 2 * BN * 4;
-  static constexpr int BAR_OFF = WACT_OFF + MAX_ACTIONS * BN * 4;
+  static constexpr int BAR_OFF = BIAS2_OFF + 2 * BN * 4;
   static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
   static constexpr int ALLOC = BYTES + 1024;              // room to align the base
   static_assert(STAGES >= 4 && ALLOC <= SMEM_MAX, "shared memory layout");
@@ -177,7 +177,6 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
   unsigned char* smem = smem_raw + (((raw_s + 1023) & ~1023u) - raw_s);
   const uint32_t base_s = smem_u32(smem);
   float* bias_s = reinterpret_cast<float*>(smem + L::BIAS_OFF);
-  float* wact_s = reinterpret_cast<float*>(smem + L::WACT_OFF);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* empty = full + L::STAGES;
 
@@ -189,8 +188,6 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
   const int tiles = p.batch * tiles_per_image;
 
   for (int i = tid; i < BN; i += THREADS) bias_s[i] = p.bias[i];
-  if (p.act != nullptr)
-    for (int i = tid; i < p.actions * BN; i += THREADS) wact_s[i] = p.wact[i];
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -301,13 +298,27 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
 
     // This tile's bias (conv1: plus the per-sample action bias), in the
     // half of bias2_s that the previous tile's epilogue does not read; the
-    // chunk barrier below publishes it.
+    // chunk barrier below publishes it.  The action terms' loads go out
+    // eight at a time: the table misses L1 (shared memory takes nearly all
+    // of it), so a group costs one trip to L2, not one an action.
     float* tbias = bias2_s + (tile_it & 1) * BN;
     for (int ch = ctid; ch < BN; ch += CONSUMERS) {
       float v = bias_s[ch];
-      if (p.act != nullptr)
-        for (int a = 0; a < p.actions; ++a)
-          v += p.act[(long long)b * p.actions + a] * wact_s[a * BN + ch];
+      if (p.act != nullptr) {
+        const float* arow = p.act + (long long)b * p.actions;
+        for (int a0 = 0; a0 < p.actions; a0 += 8) {
+          float x[8] = {}, w[8] = {};
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (a0 + k < p.actions) {
+              x[k] = arow[a0 + k];
+              w[k] = p.wact[(a0 + k) * BN + ch];
+            }
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (a0 + k < p.actions) v += x[k] * w[k];
+        }
+      }
       tbias[ch] = v;
     }
 
@@ -322,14 +333,32 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
       const bool seg0 = c < n0;
       const int kc = min(CHUNK, (seg0 ? p.c0 : p.c1) - (seg0 ? c : c - n0) * CHUNK) / 16;
       const uint32_t abuf = a_base + (it & 1) * A_BYTES;
-      // The widths the step takes (latent 16, hidden 48/64/80/128) cut into
-      // chunks of 16, 48 or 64 channels.
-      if (kc == 1)
+      // The widths the step takes (latent 16, hidden a multiple of 16 up to
+      // 128) cut into chunks of 16, 32, 48 or 64 channels: each chunk's
+      // ldmatrix reads only the channels its copy wrote.  A hidden layer
+      // (N = the hidden width) reads conv1's latents (1 k16 step), whole
+      // 64-channel slices (4) and the width's tail (N % 64 / 16), and only
+      // those are compiled in; the head (N = 16) reads any hidden width.
+      constexpr bool ANY = HEAD != LRELU;
+      constexpr int TAIL = BN % 64 / 16;
+      if (kc == 1) {
         chunk_mma<BN, 1>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
-      else if (kc == 3)
-        chunk_mma<BN, 3>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
-      else
-        chunk_mma<BN, 4>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
+      } else if (kc == 2) {
+        if constexpr (ANY || TAIL == 2)
+          chunk_mma<BN, 2>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
+        else
+          __trap();
+      } else if (kc == 3) {
+        if constexpr (ANY || TAIL == 3)
+          chunk_mma<BN, 3>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
+        else
+          __trap();
+      } else {
+        if constexpr (ANY || BN >= 64)
+          chunk_mma<BN, 4>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
+        else
+          __trap();
+      }
     }
 
     // ---------------- epilogue ----------------

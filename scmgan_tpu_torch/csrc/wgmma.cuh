@@ -1,7 +1,19 @@
-// wgmma.mma_async m64nNk16, f32 sums of bf16 products, A (64x16) from
-// registers in the mma.m16n8k16 A-fragment layout (warp w of the warpgroup
-// holds rows 16w..16w+15), B (16xN) K-major in shared memory through a
-// descriptor.  scale-d is true: the accumulator is always added to.
+// Register-A wgmma at every N the kernels take (16 to 128 in steps of 16):
+//
+//   WgmmaRS<N>  wgmma.mma_async m64nNk16, f32 sums of bf16 products, A
+//               (64x16) from registers in the mma.m16n8k16 A-fragment layout
+//               (warp w of the warpgroup holds rows 16w..16w+15), B (16xN)
+//               K-major in shared memory through a descriptor.
+//   WgmmaS8<N>  wgmma.mma_async m64nNk32, exact s32 sums of s8 x s8 products
+//               (no .satfinite: |sum| <= 127^2 * 9 * 256 < 2^31 never
+//               clips), A (64x32 bytes) from registers in the mma.m16n8k32
+//               s8 A-fragment layout -- byte for byte the bf16 k16 fragment,
+//               so one ldmatrix.x4 loads either -- and B (32xN) K-major in
+//               shared memory through the same descriptor.
+//
+// scale-d is true: the accumulator is always added to.  Each thread holds
+// N / 2 accumulators, the asm's operands %0 .. %(N/2 - 1); A, the
+// descriptor and scale-d follow them.
 
 #pragma once
 
@@ -12,153 +24,79 @@ namespace scm {
 template <int N>
 struct WgmmaRS;
 
-template <>
-struct WgmmaRS<16> {
-  __device__ __forceinline__ static void run(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<48> {
-  __device__ __forceinline__ static void run(float (&d)[24], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
-        "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<64> {
-  __device__ __forceinline__ static void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<80> {
-  __device__ __forceinline__ static void run(float (&d)[40], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-        "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<128> {
-  __device__ __forceinline__ static void run(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-// wgmma.mma_async m64nNk32, exact s32 sums of s8 x s8 products (no
-// .satfinite: |sum| <= 127^2 * 9 * 256 < 2^31 never clips), A (64x32 bytes)
-// from registers in the mma.m16n8k32 s8 A-fragment layout -- byte for byte
-// the bf16 k16 fragment above, so one ldmatrix.x4 loads either -- and B
-// (32xN) K-major in shared memory through the same descriptor.
-
 template <int N>
 struct WgmmaS8;
 
-template <>
-struct WgmmaS8<16> {
-  __device__ __forceinline__ static void run(int (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
+// d[0] .. d[N/2 - 1] as asm operands with constraint C, and their names.
+#define SCM_D8(C, i)                                                            \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]),    \
+      C(d[i + 6]), C(d[i + 7])
+#define SCM_D16(C) SCM_D8(C, 0)
+#define SCM_D32(C) SCM_D16(C), SCM_D8(C, 8)
+#define SCM_D48(C) SCM_D32(C), SCM_D8(C, 16)
+#define SCM_D64(C) SCM_D48(C), SCM_D8(C, 24)
+#define SCM_D80(C) SCM_D64(C), SCM_D8(C, 32)
+#define SCM_D96(C) SCM_D80(C), SCM_D8(C, 40)
+#define SCM_D112(C) SCM_D96(C), SCM_D8(C, 48)
+#define SCM_D128(C) SCM_D112(C), SCM_D8(C, 56)
+#define SCM_R16 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define SCM_R32 SCM_R16 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define SCM_R48 SCM_R32 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define SCM_R64 SCM_R48 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define SCM_R80 SCM_R64 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define SCM_R96 SCM_R80 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define SCM_R112 SCM_R96 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define SCM_R128 SCM_R112 ", %56, %57, %58, %59, %60, %61, %62, %63"
 
-template <>
-struct WgmmaS8<48> {
-  __device__ __forceinline__ static void run(int (&d)[24], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
-        "{%24, %25, %26, %27}, %28, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
+// One specialization; A0-A3, DESC and PRED number the operands after the
+// accumulators (N/2 .. N/2 + 5).
+#define SCM_WGMMA(STRUCT, N, T, C, SHAPE, TAIL, A0, A1, A2, A3, DESC, PRED)      \
+  template <>                                                                   \
+  struct STRUCT<N> {                                                            \
+    __device__ __forceinline__ static void run(T (&d)[N / 2],                   \
+                                               const uint32_t (&a)[4],          \
+                                               uint64_t desc) {                 \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #PRED ", 0;\n"           \
+                   "wgmma.mma_async.sync.aligned.m64n" #N SHAPE " "              \
+                   "{" SCM_R##N "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3        \
+                   "}, %" #DESC ", p" TAIL ";\n}\n"                              \
+                   : SCM_D##N(C)                                                \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),      \
+                     "r"(1));                                                   \
+    }                                                                           \
+  };
+#define SCM_WGMMA_N(N, ...)                                                     \
+  SCM_WGMMA(WgmmaRS, N, float, "+f", "k16.f32.bf16.bf16", ", 1, 1, 0",          \
+            __VA_ARGS__)                                                        \
+  SCM_WGMMA(WgmmaS8, N, int, "+r", "k32.s32.s8.s8", "", __VA_ARGS__)
 
-template <>
-struct WgmmaS8<64> {
-  __device__ __forceinline__ static void run(int (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
+SCM_WGMMA_N(16, 8, 9, 10, 11, 12, 13)
+SCM_WGMMA_N(32, 16, 17, 18, 19, 20, 21)
+SCM_WGMMA_N(48, 24, 25, 26, 27, 28, 29)
+SCM_WGMMA_N(64, 32, 33, 34, 35, 36, 37)
+SCM_WGMMA_N(80, 40, 41, 42, 43, 44, 45)
+SCM_WGMMA_N(96, 48, 49, 50, 51, 52, 53)
+SCM_WGMMA_N(112, 56, 57, 58, 59, 60, 61)
+SCM_WGMMA_N(128, 64, 65, 66, 67, 68, 69)
 
-template <>
-struct WgmmaS8<80> {
-  __device__ __forceinline__ static void run(int (&d)[40], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-        "{%40, %41, %42, %43}, %44, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaS8<128> {
-  __device__ __forceinline__ static void run(int (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
+#undef SCM_WGMMA_N
+#undef SCM_WGMMA
+#undef SCM_D8
+#undef SCM_D16
+#undef SCM_D32
+#undef SCM_D48
+#undef SCM_D64
+#undef SCM_D80
+#undef SCM_D96
+#undef SCM_D112
+#undef SCM_D128
+#undef SCM_R16
+#undef SCM_R32
+#undef SCM_R48
+#undef SCM_R64
+#undef SCM_R80
+#undef SCM_R96
+#undef SCM_R112
+#undef SCM_R128
 
 }  // namespace scm

@@ -27,10 +27,9 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "scmgan_tpu_torch"
-SOURCES = ("fused_transition.cu", "transition_h48.cu", "transition_h64.cu",
-           "transition_h80.cu", "transition_h128.cu", "transition_head.cu",
-           "fused_decoder.cu", "int8_transition.cu", "int8_h48.cu", "int8_h64.cu",
-           "int8_h80.cu", "int8_h128.cu", "int8_head.cu")
+SOURCES = ("fused_transition.cu", *(f"transition_h{n}.cu" for n in range(16, 129, 16)),
+           "transition_head.cu", "fused_decoder.cu", "int8_transition.cu",
+           *(f"int8_h{n}.cu" for n in range(32, 129, 16)), "int8_head.cu")
 HEADERS = ("common.cuh", "mma.cuh", "wgmma.cuh", "tensor_map.cuh",
            "transition_conv.cuh", "int8_conv.cuh")
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spill

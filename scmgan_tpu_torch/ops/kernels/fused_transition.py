@@ -19,23 +19,47 @@ from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.spectral_norm import sn_weight
 
 # conv1's input (latent + actions) is padded to 32 channels in the plain
-# version's weights, conv6's output to one 16-wide MMA tile.  The kernel is
-# instantiated for the hidden widths of the shipped teacher (128) and
-# students (48, 64, 80).
+# version's weights, conv6's output to one 16-wide MMA tile.  Both transition
+# kernels are instantiated at every multiple of 16 up to MAX_HIDDEN (HIDDENS);
+# a model of another width runs at the next one on zero-padded weights
+# (``kernel_hidden``).  Wider needs output-channel tiles: the accumulators of
+# a 128-channel tile already fill a thread's registers.
 K_STEP = 32
 N_TILE_HEAD = 16
-HIDDENS = (48, 64, 80, 128)
+MAX_HIDDEN = 128
+HIDDENS = tuple(range(N_TILE_HEAD, MAX_HIDDEN + 1, N_TILE_HEAD))
 # The kernel's K chunk (input channels copied to shared memory at a time, one
-# 128-byte swizzled row a pixel), its tile (output pixels a block), the input
-# pixels a chunk buffer holds, and the most actions conv1's bias takes.
+# 128-byte swizzled row a pixel), its tile (output pixels a block) and the
+# input pixels a chunk buffer holds.
 CHUNK = 64
 TILE_M = 256
 A_SLOTS = 6 * 66
-MAX_ACTIONS = 16
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def kernel_hidden(hidden: int) -> int:
+    """The width the transition kernels run a ``hidden``-channel model at:
+    the next multiple of 16 (one of HIDDENS).  Raises past MAX_HIDDEN."""
+    if not 0 < hidden <= MAX_HIDDEN:
+        raise ValueError(f"the transition kernels take hidden widths 1 to {MAX_HIDDEN}; "
+                         f"got {hidden}")
+    return _round_up(hidden, N_TILE_HEAD)
+
+
+def pad_hidden(w9: torch.Tensor, segments, hp: int, cout_pad: int) -> torch.Tensor:
+    """A (9, Cin, Cout) stack with each K segment (``segments``: the input
+    tensors' channel counts, concatenated along Cin) zero-padded to ``hp``
+    channels and Cout to ``cout_pad``: the weights of the same conv on inputs
+    whose extra channels are zero."""
+    parts, off = [], 0
+    for seg in segments:
+        parts.append(torch.nn.functional.pad(w9[:, off:off + seg], (0, 0, 0, hp - seg)))
+        off += seg
+    w = torch.cat(parts, dim=1)
+    return torch.nn.functional.pad(w, (0, cout_pad - w.shape[-1])).contiguous()
 
 
 def kernel_layout(w9: torch.Tensor, segments) -> torch.Tensor:
@@ -88,6 +112,13 @@ def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
     ``w1_act``, conv1's one-hot action weights summed over taps in f32
     (actions, hidden): the conv of a spatially constant map under circular
     padding is that sum, so the kernel adds it as a per-sample bias.
+
+    The kernel's operands (``k1``..``k6``, ``b1``..``b5``, ``w1_act``) are at
+    the hidden width rounded up to 16, ``hp``: the extra output channels of
+    conv1-5 have zero weights and bias, so they hold leaky-ReLU(0) = 0, and
+    the next conv's weights for them are zero, so the step is the same
+    function.  ``w1``..``w6`` and ``hidden`` stay at the model's width, and
+    ``transition_probs`` computes there.
     """
     c_in1 = latent_dim + num_actions
     c_in1_pad = _round_up(c_in1, K_STEP)
@@ -114,17 +145,20 @@ def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
         "w6": mat(w6),
     }
     hidden = ws["w2"].shape[-1]
-    segments = {1: (latent_dim,), 2: (hidden,), 3: (hidden,), 4: (hidden,),
+    hp = _round_up(hidden, N_TILE_HEAD)
+    segments = {1: (c_in1_pad,), 2: (hidden,), 3: (hidden,), 4: (hidden,),
                 5: (hidden, hidden), 6: (hidden, hidden)}
+    kin = {1: (latent_dim,), 2: (hp,), 3: (hp,), 4: (hp,), 5: (hp, hp), 6: (hp, hp)}
+    wp = {i: pad_hidden(ws[f"w{i}"], segments[i], c_in1_pad if i == 1 else hp,
+                        latent_pad if i == 6 else hp) for i in segments}
     return {
         **ws,
-        **{f"k{i}": kernel_layout(ws[f"w{i}"], seg) for i, seg in segments.items()},
-        "w1_act": ws["w1"][:, latent_dim:c_in1, :].to(torch.float32)
+        **{f"k{i}": kernel_layout(wp[i], kin[i]) for i in kin},
+        "w1_act": wp[1][:, latent_dim:c_in1, :].to(torch.float32)
                   .sum(dim=0).contiguous(),
-        "b1": bias("conv1"), "b2": bias("conv2"), "b3": bias("conv3"),
-        "b4": bias("conv4"), "b5": bias("conv5"),
+        **{f"b{i}": bias(f"conv{i}", hp - hidden) for i in range(1, 6)},
         "b6": bias("conv6", latent_pad - latent_dim),
-        "latent_dim": latent_dim, "num_actions": num_actions,
+        "latent_dim": latent_dim, "num_actions": num_actions, "hidden": hidden,
         "c_in1_pad": c_in1_pad, "latent_pad": latent_pad,
     }
 
@@ -185,7 +219,8 @@ def transition_probs(packed: dict, z: torch.Tensor,
     def conv(i, inp):
         w9 = packed[f"w{i}"]
         w = w9.to(torch.float32).reshape(3, 3, *w9.shape[1:])
-        return conv2d({"w": w, "b": packed[f"b{i}"]}, inp, circular=True)
+        # conv1-5's biases are the kernel's, padded past the model's width
+        return conv2d({"w": w, "b": packed[f"b{i}"][:w.shape[-1]]}, inp, circular=True)
 
     h1 = rnd(leaky_relu(conv(1, x)))
     h2 = rnd(leaky_relu(conv(2, h1)))
@@ -211,7 +246,8 @@ def fused_transition(packed: dict, z: torch.Tensor,
                      seed: int = 0) -> torch.Tensor:
     """Drop-in inference replacement for ``models.world_model.transition``.
 
-    z: (B, H, W, latent); action_onehot: (B, A).  Returns (B, H, W, latent)
+    z: (B, H, W, latent); action_onehot: (B, A), any number of actions; any
+    hidden width up to MAX_HIDDEN.  Returns (B, H, W, latent)
     binary latents in z's dtype: thresholded at 0.5, or with ``sample``
     drawn as Bernoulli(p) from the Philox stream keyed by ``seed``.
     A CUDA tensor launches the kernel (``packed`` in bf16 on the card); a
@@ -226,15 +262,12 @@ def fused_transition(packed: dict, z: torch.Tensor,
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
     num_actions = action_onehot.shape[-1]
-    hidden = packed["w2"].shape[-1]
     if (latent != packed["latent_dim"] or num_actions != packed["num_actions"]
             or action_onehot.shape[0] != b):
         raise ValueError("z / action shapes do not match the packed weights")
-    if (hidden not in HIDDENS or latent != N_TILE_HEAD
-            or packed["latent_pad"] != N_TILE_HEAD or num_actions > MAX_ACTIONS):
-        raise ValueError(f"the kernel takes hidden in {HIDDENS}, latent "
-                         f"{N_TILE_HEAD} and at most {MAX_ACTIONS} actions; got "
-                         f"{hidden}, {latent}, {num_actions}")
+    if latent != N_TILE_HEAD or packed["latent_pad"] != N_TILE_HEAD:
+        raise ValueError(f"the kernel takes latent {N_TILE_HEAD}; got {latent}")
+    hidden = kernel_hidden(packed["hidden"])
     weights = [packed[f"k{i}"] for i in range(1, 7)]
     biases = [packed[f"b{i}"] for i in range(1, 7)]
     for t in weights + biases + [packed["w1_act"]]:

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from scmgan_tpu_torch.ops.conv import circular_pad
 from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.kernels.fused_transition import (
-    HIDDENS,
+    kernel_hidden,
+    pad_hidden,
     philox_uniform,
     tile_plan,
 )
@@ -49,7 +50,9 @@ ACT_SCALE = 8.0 / 127.0   # static scale: leaky-ReLU activations in [0, 8]
 # weight tile; a segment holds at most 128 channels (one 128-byte slot a
 # pixel in shared memory) and starts a new tile.  The head's output is one
 # 16-wide MMA tile.  Instantiated for the same hidden widths as the bf16
-# kernel (HIDDENS).  Split-order convs at N >= 80 run on 128-pixel tiles.
+# kernel (``fused_transition.HIDDENS``, every multiple of 16 up to 128), a
+# model of another width padded to the next.  Split-order convs at N >= 80
+# run on 128-pixel tiles.
 UNIT = 16
 STEP_UNITS = 2
 TILE_UNITS = 8
@@ -121,11 +124,18 @@ def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
     ``scales`` maps each conv to its f32 (Cout,) dequant scale; for the
     split orders conv5 and conv6 map to a pair (main half, skip half).
     ``requant`` maps conv1-conv5 to a scalar or (Cout,) multiplier.
+
+    ``w`` and ``hidden`` stay at the model's width, for the plain version.
+    The kernel's operands (``kw``, and conv1-5's ``s``, ``b``, ``rq`` and
+    ``w1a``) are at the width rounded up to 16: an extra channel has zero
+    weights, scale, bias and requant, so it requantizes to 0, and the next
+    conv's weights for it are zero, so the step is the same function.
     """
     if order not in ORDERS:
         raise ValueError(f"order must be one of {sorted(ORDERS)}, not {order!r}")
     latent = biases["conv6"].shape[0]
     hidden = weights["conv2"].shape[-1]
+    hp = _round_up(hidden, UNIT)
     num_actions = weights["conv1"].shape[2] - latent
     latent_pad = _round_up(latent, LATENT_TILE)
     f32 = torch.float32
@@ -141,37 +151,43 @@ def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
         return torch.as_tensor(x, dtype=f32, device=biases["conv6"].device) \
             .expand(n).contiguous()
 
+    def hvec(x):
+        """A conv1-5 operand at the kernel's width."""
+        return F.pad(vec(x, hidden), (0, hp - hidden))
+
     def pad_out(x):
         return torch.cat([x.to(f32), x.new_zeros(latent_pad - latent, dtype=f32)])
 
     w1 = mat("conv1")
     w = [w1[:, :latent].contiguous()] + [mat(f"conv{i}") for i in (2, 3, 4, 5)] \
         + [mat("conv6", latent_pad)]
-    s = [vec(scales[f"conv{i}"], hidden) for i in range(1, 5)]
+    s = [hvec(scales[f"conv{i}"]) for i in range(1, 5)]
     if order == "joint":
-        s += [vec(scales["conv5"], hidden), pad_out(scales["conv6"])]
+        s += [hvec(scales["conv5"]), pad_out(scales["conv6"])]
     else:
-        s += [tuple(vec(x, hidden) for x in scales["conv5"]),
+        s += [tuple(hvec(x) for x in scales["conv5"]),
               tuple(pad_out(x) for x in scales["conv6"])]
-    w1z = torch.cat([w[0], w[0].new_zeros(
-        (9, _round_up(latent, UNIT) - latent, hidden))], 1)
-    # the kernel's weight layout exists for whole 16-channel units only; the
-    # plain version takes any width
-    kw = None if hidden % UNIT else (
-        [pack_kernel_weights(w1z, (w1z.shape[1],))]
-        + [pack_kernel_weights(x, (hidden,)) for x in w[1:4]]
-        + [pack_kernel_weights(x, (hidden, hidden)) for x in w[4:]])
+    lu = _round_up(latent, UNIT)
+    # the kernel's weight layout holds at most MAX_SEGMENT channels a tensor;
+    # the plain version takes any width
+    kw = None if hp > MAX_SEGMENT else (
+        [pack_kernel_weights(pad_hidden(w[0], (latent,), lu, hp), (lu,))]
+        + [pack_kernel_weights(pad_hidden(x, (hidden,), hp, hp), (hp,)) for x in w[1:4]]
+        + [pack_kernel_weights(pad_hidden(w[4], (hidden, hidden), hp, hp), (hp, hp)),
+           pack_kernel_weights(pad_hidden(w[5], (hidden, hidden), hp, latent_pad),
+                               (hp, hp))])
     return {
         "order": order, "latent_dim": latent, "num_actions": num_actions,
         "hidden": hidden, "latent_pad": latent_pad,
         "w": w,
-        # conv1's action half summed over the taps: (actions, hidden) int32
-        "w1a": w1[:, latent:latent + num_actions].sum(0, dtype=torch.int32),
+        # conv1's action half summed over the taps: (actions, hp) int32
+        "w1a": F.pad(w1[:, latent:latent + num_actions].sum(0, dtype=torch.int32),
+                     (0, hp - hidden)),
         "kw": kw,
         "s": s,
-        "b": [biases[f"conv{i}"].to(f32).contiguous() for i in range(1, 6)]
+        "b": [hvec(biases[f"conv{i}"]) for i in range(1, 6)]
              + [pad_out(biases["conv6"])],
-        "rq": [vec(requant[f"conv{i}"], hidden) for i in range(1, 6)],
+        "rq": [hvec(requant[f"conv{i}"]) for i in range(1, 6)],
     }
 
 
@@ -237,7 +253,16 @@ def _action_bias(packed: dict, action_onehot: torch.Tensor) -> torch.Tensor:
     """conv1's action half as a per-sample (B, hidden) bias of exact int32
     sums, in f64 (``models/quantized.py::_action_bias``)."""
     a = action_onehot.to(torch.int32).to(torch.float64)
-    return a @ packed["w1a"].to(device=a.device, dtype=torch.float64)
+    w1a = packed["w1a"][:, :packed["hidden"]]
+    return a @ w1a.to(device=a.device, dtype=torch.float64)
+
+
+def _at_width(operands: list, n: int) -> list:
+    """conv1-5's per-channel operands (each a tensor or a split pair) cut
+    to the model's width ``n``; conv6's as they are."""
+    def cut(x):
+        return tuple(v[:n] for v in x) if isinstance(x, tuple) else x[:n]
+    return [cut(x) for x in operands[:5]] + operands[5:]
 
 
 def _qepilogue(acc, scale, bias, requant=None, *, order: str = "joint"):
@@ -261,8 +286,9 @@ def int8_transition_logits(packed: dict, z: torch.Tensor,
                            action_onehot: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic up to conv6's f32 logits (B, H, W,
     latent_pad), in PyTorch.  z: (B, H, W, latent) int8 in {0, 1}."""
-    w, s, b, rq = packed["w"], packed["s"], packed["b"], packed["rq"]
     order, hidden = packed["order"], packed["hidden"]
+    w = packed["w"]
+    s, b, rq = (_at_width(packed[k], hidden) for k in ("s", "b", "rq"))
     acc1 = _int_conv(z, w[0]) + _action_bias(packed, action_onehot)[:, None, None, :]
     h1 = _qepilogue(acc1, s[0], b[0], rq[0])
     h2 = _qepilogue(_int_conv(h1, w[1]), s[1], b[1], rq[1])
@@ -312,7 +338,8 @@ def int8_transition(packed: dict, z: torch.Tensor,
                     action_onehot: torch.Tensor, *, head: str = "logit",
                     seed: int = 0) -> torch.Tensor:
     """One int8 transition step.  z: (B, H, W, latent) int8 in {0, 1};
-    action_onehot: (B, A).  Returns int8 latents (B, H, W, latent); the
+    action_onehot: (B, A), any number of actions; any hidden width up to
+    ``fused_transition.MAX_HIDDEN``.  Returns int8 latents (B, H, W, latent); the
     "sample" head draws from the Philox stream keyed by ``seed``
     (``fused_transition.philox_uniform``).
 
@@ -329,14 +356,14 @@ def int8_transition(packed: dict, z: torch.Tensor,
         return int8_transition_plain(packed, z, action_onehot, head=head, u=u)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
-    hidden, num_actions = packed["hidden"], packed["num_actions"]
+    num_actions = packed["num_actions"]
     if (z.dtype != torch.int8 or latent != packed["latent_dim"]
             or action_onehot.shape != (b, num_actions)):
         raise ValueError("z must be int8 and z / action shapes must match the "
                          "packed weights")
-    if hidden not in HIDDENS or packed["latent_pad"] != LATENT_TILE:
-        raise ValueError(f"the kernel takes hidden in {HIDDENS} and latent <= "
-                         f"{LATENT_TILE}; got {hidden}, {latent}")
+    if packed["latent_pad"] != LATENT_TILE:
+        raise ValueError(f"the kernel takes latent <= {LATENT_TILE}; got {latent}")
+    hidden = kernel_hidden(packed["hidden"])
     for t in _operand_tensors(packed):
         if t.device != z.device or not t.is_contiguous():
             raise ValueError("packed operands must be contiguous on z's device")

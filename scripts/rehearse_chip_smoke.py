@@ -10,6 +10,7 @@
     python3 scripts/rehearse_chip_smoke.py --distill-only  # phase 11 alone
     python3 scripts/rehearse_chip_smoke.py --replay-only   # phase 12 alone
     python3 scripts/rehearse_chip_smoke.py --mesh-only     # phase 13 alone
+    python3 scripts/rehearse_chip_smoke.py --shapes-only   # phase 14 alone
 
 The script's control flow, shapes and checks run with every CUDA call
 mapped to the CPU: ``torch.Generator(device="cuda")`` and
@@ -28,7 +29,11 @@ counted) at 4 iterations, B = 2, a B = 4 x 14 gate, without holding the
 falling BCE or the gates; the host-replay phase stitches with the native
 library built by ``cc`` here, at B = 4, with phase 6's training shrunk the
 same way; the mesh phase makes its one-process group with gloo on the
-CPU and runs its pipeline over three CPU devices.  Every time it prints is a CPU time or a stub,
+CPU and runs its pipeline over three CPU devices; the shapes phase checks
+B = 4 and 8 batches (its direct kernel calls counted as launches), calibrates
+on 2 samples of 2 steps at 16x16, makes its h96 student as the student-making
+phase does, and trains centipede at ``--hidden`` with a lookahead-1, depth-2
+plan (324 beams).  Every time it prints is a CPU time or a stub,
 never a card's.  It finds faults of control flow before a card is used;
 the numbers of the checks (losses, curves, round trips) are the CPU's.
 """
@@ -77,6 +82,21 @@ def map_cuda_to_cpu():
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
 
 
+class Counted:
+    """A kernel wrapper that counts its CPU calls as launches, in the
+    wrapper's own counter (which ``chip_smoke.counters`` reads)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args, **kw):
+        self.fn.launches += 1
+        return self.fn(*args, **kw)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
 def counting(fn, counter):
     def wrapped(*args, **kw):
         counter.launches += 1
@@ -100,6 +120,8 @@ def main() -> int:
                     help="run phase 12 (the host data path) alone")
     ap.add_argument("--mesh-only", action="store_true",
                     help="run phase 13 (the device mesh, the pipeline) alone")
+    ap.add_argument("--shapes-only", action="store_true",
+                    help="run phase 14 (every width and action count) alone")
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
@@ -142,7 +164,8 @@ def main() -> int:
     cli_config = cli.config_from_args
 
     def small_cli_config(a):
-        fresh = a.load_from is None or "chip_smoke_cli_train_" in a.load_from
+        fresh = a.load_from is None or any(
+            d in a.load_from for d in ("chip_smoke_cli_train_", "chip_smoke_centipede_"))
         return cli_config(a).replace(
             batch_size=args.batch, eval_batch_size=4, eval_timesteps=8, mpc_max_steps=4,
             mpc_lookahead=1, mpc_rollout_depth=2,
@@ -174,6 +197,24 @@ def main() -> int:
     cs.DISTILL_LOSS_WINDOW, cs.HOLD_GATE = 0, False
     cs.PROFILE_DISTILL = {"batch": 2, "rollout": 3, "horizon": 12}
     cs.MESH_DEVICE, cs.PIPE_DEVICES = "cpu", ("cpu",) * 3
+    cs.SHAPE_BATCHES = ((4, 64), (8, 16))
+    cs.SHAPES_DISTILL_ARGV = [*cs.SHAPES_DISTILL_ARGV[:6], "--iters", "4", "--qat-from", "0.5",
+                              "--qat-recal", "1", "--batch-size", "2", "--rollout", "3",
+                              "--eval-seeds", "1"]
+    calibrated_qt = cs.calibrated_qt
+    cs.calibrated_qt = lambda params, z, n: calibrated_qt(params, z[:, :16, :16], n,
+                                                          n_samples=2, steps=2)
+    shapes_phase = cs.shapes_phase
+
+    def shapes_counted(model):
+        kernels = cs.fused_transition, cs.i8.int8_transition
+        cs.fused_transition, cs.i8.int8_transition = (Counted(k) for k in kernels)
+        try:
+            return shapes_phase(model)
+        finally:
+            cs.fused_transition, cs.i8.int8_transition = kernels
+
+    cs.shapes_phase = shapes_counted
     cs.MESH_ITERS, cs.MESH_EVAL_TIMESTEPS, cs.MESH_STEP_ITERS = 3, 8, 3
     cs.MESH_BATCH = args.batch
     # the command line's own process counts the evaluation's plain-path calls
@@ -202,6 +243,11 @@ cli.main(sys.argv[1:])""")
         model = cs.load_model(cs.BUNDLE, device="cuda")
         ds = datasource.allocate_datasource(cs.ENV, seed=cs.SEED, device="cpu")
         print("launches", cs.mesh_phase(model, ds)["launches"])
+        rc = 0
+    elif args.shapes_only:
+        torch.cuda.is_available = lambda: True
+        model = cs.load_model(cs.BUNDLE, device="cuda")
+        print("launches", cs.shapes_phase(model)["launches"])
         rc = 0
     elif args.mpc_only:
         print("launches", cs.mpc_phase()["launches"])

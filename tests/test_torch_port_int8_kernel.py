@@ -25,6 +25,7 @@ from scmgan_tpu.models import init_world_model
 from scmgan_tpu.models import quantized as jq
 from scmgan_tpu.ops.spectral_norm import sn_weight as jax_sn_weight
 from scmgan_tpu_torch.models import quantized as tq
+from scmgan_tpu_torch.models.world_model import init_transition
 from scmgan_tpu_torch.ops.kernels import fused_transition as tft
 from scmgan_tpu_torch.ops.kernels import int8_transition as ti
 from scmgan_tpu_torch.train.checkpoint import load_pytree
@@ -255,16 +256,26 @@ def test_wrapper_refuses_other_devices_and_heads(small):
 @pytest.mark.cuda
 @pytest.mark.parametrize("packing", ["joint", "sum_first", "bias_first"])
 @pytest.mark.parametrize("b,hw", [(4, 64), (3, 12)], ids=["full", "ragged"])
-def test_int8_kernel_matches_plain_on_card(card, packing, b, hw):
+@pytest.mark.parametrize("hidden,actions", [
+    (48, 5), (16, 5), (32, 5), (50, 5), (96, 5), (104, 5), (112, 5), (128, 18)],
+    ids=["h48-student", "h16", "h32", "h50", "h96", "h104", "h112", "h128-a18"])
+def test_int8_kernel_matches_plain_on_card(card, packing, b, hw, hidden, actions):
     """Bit for bit; at 12 x 12 a 256-pixel tile holds 144 pixels (21 rows
-    of 12, 12 of them in the image) and a 128-pixel split tile 120."""
-    params = load_pytree(os.path.join(REPO, "pretrained_models",
-                                      "minipacman_student_h48",
-                                      "model-transition.npz"), card)
+    of 12, 12 of them in the image) and a 128-pixel split tile 120.  The
+    shipped h48 student, and random transitions at the kernel's other
+    multiples of 16, at widths between them (zero-padded operands) and with
+    centipede's 18 actions."""
+    if (hidden, actions) == (48, 5):
+        params = load_pytree(os.path.join(REPO, "pretrained_models",
+                                          "minipacman_student_h48",
+                                          "model-transition.npz"), card)
+    else:
+        gen = torch.Generator(device=card).manual_seed(hidden + actions)
+        params = init_transition(gen, 16, actions, hidden=hidden)
     packed = {"joint": lambda: tq.quantize_transition(params).packed,
               "sum_first": lambda: ti.pack_quantized_weights(params),
               "bias_first": lambda: ti.pack_int8_weights(params)}[packing]()
-    z, a = _inputs(5, b=b, hw=hw, latent=16, actions=5)
+    z, a = _inputs(5, b=b, hw=hw, latent=16, actions=actions)
     zt = torch.from_numpy(z).to(card, torch.int8)
     at = torch.from_numpy(a).to(card)
     for head in ("logit", "sigmoid"):

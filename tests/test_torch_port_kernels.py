@@ -17,6 +17,7 @@ import scmgan_tpu.ops.pallas.fused_decoder as jfd
 import scmgan_tpu.ops.pallas.fused_transition as jft
 from scmgan_tpu.models import world_model as jwm
 from scmgan_tpu.ops.conv import conv2d as jconv2d
+from scmgan_tpu_torch.models.world_model import init_transition
 from scmgan_tpu_torch.ops.conv import conv2d as tconv2d
 from scmgan_tpu_torch.ops.kernels import _build as tkb
 from scmgan_tpu_torch.ops.kernels import fused_decoder as tfd
@@ -32,6 +33,11 @@ BUNDLES = ("minipacman_cf", "pong_cf", "boxes_cf")
 # the students (48, 64, 80; 80 splits into a 64- and a 16-channel chunk).
 TRANSITIONS = ("minipacman_cf", "minipacman_student_h48",
                "minipacman_student_h64", "minipacman_student_h80", "pong_cf")
+# Random transitions at widths and action counts no shipped model has: the
+# kernels' other multiples of 16, widths between them (run on zero-padded
+# weights) and centipede's 18 actions; "h<hidden>-a<actions>".
+RANDOM_TRANSITIONS = ("h16-a5", "h32-a5", "h50-a5", "h96-a5", "h104-a5", "h112-a5",
+                      "h128-a18")
 LATENT, ACTIONS = 16, 5
 # f32 mode against XLA: the same convs summed in another order.
 RTOL = ATOL = 1e-5
@@ -79,7 +85,12 @@ def _bundle(name):
 
 
 def _transition_params(name, device="cpu"):
-    """The transition of a bundle or a student, and its number of actions."""
+    """The transition of a bundle or a student (or a random one of
+    RANDOM_TRANSITIONS), and its number of actions."""
+    if name in RANDOM_TRANSITIONS:
+        hidden, actions = (int(x[1:]) for x in name.split("-"))
+        gen = torch.Generator(device=device).manual_seed(hidden + actions)
+        return init_transition(gen, LATENT, actions, hidden=hidden), actions
     path = os.path.join(MODELS, name, "model-transition.npz")
     params = load_pytree(path, device)
     return params, params["conv1"]["w"].shape[2] - LATENT
@@ -369,7 +380,7 @@ def test_wrappers_refuse_other_devices(model):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hw", [64, 12])
-@pytest.mark.parametrize("name", TRANSITIONS)
+@pytest.mark.parametrize("name", TRANSITIONS + RANDOM_TRANSITIONS)
 def test_transition_kernel_matches_plain_on_card(card, name, hw):
     params, actions = _transition_params(name, card)
     packed = tft.pack_transition_weights(params, LATENT, actions)
