@@ -174,14 +174,18 @@ Phases:
      |p - 0.5| <= 1e-5 (counted), ms per call beside the unsharded cuDNN
      transition and the ``fused_transition`` kernel; (d) the spatial
      transition on the one-process ring bit-equal to the unsharded one;
-  14. every hidden width up to 128 and any action count (``shapes_phase``;
-     both transition kernels run any width at the next multiple of 16 on
-     zero-padded operands, and take any action count): (a) both kernels
-     against their plain versions with random weights at hidden 16, 32, 50,
-     96, 104 and 112 with 5 actions and at hidden 128 with 18, at B = 100,
-     64x64 and B = 640, 16x16 (the bf16 kernel's two heads to phase 3's
-     tolerance; the int8 kernel in a ``calibrated_qt`` packing and the three
-     static ones, 0 bits apart), each call's launch counted; (b)
+  14. every model shape (``shapes_phase``; both transition kernels run any
+     width at the next multiple of 16 on zero-padded operands, a layer past
+     128 channels as several output-channel tiles, and take any latent and
+     action count; the decoder any latent): (a) the three kernels against
+     their plain versions with random weights -- the transitions at hidden
+     16, 32, 50, 96, 104 and 112 with 5 actions, at hidden 128 with 18, at
+     hidden 144, 200 and 256 and at latents 4, 8, 32 and 64 (latent 64 at
+     hidden 256 with 18 actions), at B = 100, 64x64 and B = 640, 16x16 (the
+     bf16 kernel's two heads to phase 3's tolerance; the int8 kernel in a
+     ``calibrated_qt`` packing and the three static ones, 0 bits apart);
+     the decoder at latents 4, 8, 32 and 64 with 1 and 3 colours -- each
+     call's launch counted; (b)
      ``python -m scmgan_tpu_torch.cli.distill_student --hidden 96`` on
      minipacman_cf in this process (20 iterations, one gate seed): its
      ``fidelity.json`` written, its gate's launches as implied, the gate
@@ -191,13 +195,21 @@ Phases:
      evaluation hook, then ``--evaluate --evaluations 0``, launches as
      implied, the free-run's first 10 steps held against the plain path
      (5%), and one timed plan at the records' reference beam (lookahead 2,
-     depth 12: 5,832 beams) through the bf16 kernel;
+     depth 12: 5,832 beams) through the bf16 kernel; (d) a latent-8
+     gridworld model (tests/test_train.py's configuration) trained 4
+     iterations through ``trainer.train``, ``measure_prediction_mse`` at B =
+     100 x 100 with its launches and its first 10 steps held against the
+     plain path (5%), one plan each on the bf16 and the int8 kernel at the
+     reference beam, launches held; (e) a random minipacman model at latent
+     32, hidden 256, the same free-run at full size against the plain path,
+     with its peak memory;
   15. a ``kernels`` JSON line (launches summed over the main paths), the
      card line, and the result line.
 
-Phase 7 also times both kernels at hidden 16, 32, 50, 96, 104 and 112
-(random weights, 5 actions, B = 100, 64x64) beside the plain versions,
-cuDNN and the bound.
+Phase 7 also times both transition kernels at hidden 16, 32, 50, 96, 104,
+112, 144 and 256 and at latents 8 and 32 (hidden 128), and the decoder at
+latents 8, 32 and 64 (random weights, 5 actions, B = 100, 64x64), beside
+the plain versions, cuDNN and the bound.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device, or outside the repository, it fails at once.
@@ -268,9 +280,10 @@ from scmgan_tpu_torch.ops.kernels.fused_decoder import (
     pack_decoder_weights,
 )
 from scmgan_tpu_torch.ops.kernels.fused_transition import (
-    HIDDENS,
+    N_TILES,
     fused_transition,
     kernel_hidden,
+    n_tiles,
     pack_transition_weights,
     philox_uniform,
     transition_plain,
@@ -280,6 +293,7 @@ from scmgan_tpu_torch.models.world_model import (
     WorldModel,
     decode,
     encode,
+    init_decoder,
     init_transition,
     init_world_model,
     transition,
@@ -439,8 +453,8 @@ def bound(flops: float, moved: int, peak: float = PEAK_BF16_FLOPS):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def binary_latents(rng, b, hw=64):
-    z = (rng.random((b, hw, hw, 16)) > 0.5).astype(np.float32)
+def binary_latents(rng, b, hw=64, latent=16):
+    z = (rng.random((b, hw, hw, latent)) > 0.5).astype(np.float32)
     return torch.from_numpy(z).cuda()
 
 
@@ -449,7 +463,7 @@ def onehot_actions(rng, b, num_actions):
     return torch.from_numpy(a).cuda()
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def host_uniforms(seed: int, shape: tuple) -> torch.Tensor:
     """The kernels' sample-head uniforms for ``shape``, drawn by the host's
     Philox once per seed and shape (a second or so at B = 100, 64x64)."""
@@ -558,6 +572,21 @@ def int8_cost(packed, z, a):
            + 2 * b * acts * hid)
     moved = nbytes(z, a, z, *i8._operand_tensors(packed))
     return ops, moved
+
+
+def decode_cost(pd, z):
+    """(FLOPs, bytes) of one decoder call on latents ``z`` (real channels:
+    latent -> 4 latent -> colours)."""
+    b, h, w, latent = z.shape
+    hid, color = pd["w1"].shape[-1], pd["color"]
+    flops = 2 * b * h * w * 9 * (latent * hid + hid * color)
+    moved = nbytes(z, pd["w1"], pd["w2"], pd["b1"], pd["b2"]) + b * h * w * color * 2
+    return flops, moved
+
+
+def shape_key(latent, hidden):
+    """A width row's key: the hidden width at latent 16, else both."""
+    return hidden if latent == 16 else f"l{latent}-h{hidden}"
 
 
 def transition_cost(pt, z, a):
@@ -991,7 +1020,8 @@ def seed_latents(model, ds, n, seed):
     obs, _, _, _ = ds.collect(n, 3, generator=torch.Generator(device=ds.device).manual_seed(seed))
     a = F.one_hot(torch.full((n,), 3 % ds.binary_input_channels, device=ds.device),
                   ds.binary_input_channels).float()
-    pt = pack_transition_weights(model.transition, 16, ds.binary_input_channels)
+    latent = model.transition["conv6"]["w"].shape[-1]
+    pt = pack_transition_weights(model.transition, latent, ds.binary_input_channels)
     with torch.inference_mode():
         return fused_transition(pt, encode(model.encoder, obs), a)
 
@@ -2903,18 +2933,35 @@ def mesh_phase(model, ds):
 # no shipped model has, a student made at h96, centipede's 18 actions
 # ---------------------------------------------------------------------------
 
-# (hidden, actions): the kernels' multiples of 16 that no shipped model has
-# (16, 32, 96, 112), widths between them (50, 104: run at the next multiple
-# on zero-padded operands), and ALE's full action set at the teacher's width.
-SHAPE_CASES = ((16, 5), (32, 5), (50, 5), (96, 5), (104, 5), (112, 5), (128, 18))
+# (latent, hidden, actions): the kernels' multiples of 16 that no shipped
+# model has (16, 32, 96, 112), widths between them (50, 104: run at the next
+# multiple on zero-padded operands), ALE's full action set at the teacher's
+# width, widths past one 128-channel output tile (144, 200, 256: two N
+# tiles, the int8 K split into 128-channel segments), and latents 4, 8, 32
+# and 64 (conv1's K and the head's N zero-padded to multiples of 16).
+SHAPE_CASES = ((16, 16, 5), (16, 32, 5), (16, 50, 5), (16, 96, 5), (16, 104, 5), (16, 112, 5),
+               (16, 128, 18), (16, 144, 5), (8, 200, 5), (16, 256, 4), (4, 64, 5), (8, 128, 5),
+               (32, 128, 5), (64, 256, 18))
 # (batch, side): the free-run's and the MPC beam's shapes
 SHAPE_BATCHES = ((BATCH, 64), (MPC_GRID_EPISODES * 64, 16))
-# phase 7's rows at these widths (5 actions, B = 100, 64x64)
-SHAPE_TIME_WIDTHS = (16, 32, 50, 96, 104, 112)
+# (a) the decoder at other latents (intermediate 4L), 1 and 3 colours
+SHAPE_DECODE_LATENTS = (4, 8, 32, 64)
+SHAPE_DECODE_COLORS = (1, 3)
+# phase 7's rows at these (latent, hidden) (5 actions, B = 100, 64x64), and
+# the decoder's at these latents
+SHAPE_TIME_CASES = ((16, 16), (16, 32), (16, 50), (16, 96), (16, 104), (16, 112), (16, 144),
+                    (16, 256), (8, 128), (32, 128))
+DECODE_TIME_LATENTS = (8, 32, 64)
 # (b) a student at h96 from minipacman_cf, made as phase 11 (c) makes one but
 # with 20 iterations: its gate is printed, not held
 SHAPES_DISTILL_ARGV = ["--env", ENV, "--teacher", BUNDLE, "--hidden", "96", "--iters", "20",
                        "--qat-from", "0.5", "--qat-recal", "10", "--eval-seeds", "1"]
+# (d) a latent-8 gridworld model (tests/test_train.py's configuration)
+# trained a few iterations, then its free-run and one plan of each kernel
+LATENT8_ITERS = 4
+# (e) a random minipacman model at latent 32, hidden 256, free-run at full
+# size
+WIDE_MODEL = (32, 256)
 # (c) centipede on a stand-in ALE: a few training iterations at the Config's
 # width with the evaluation hook, then the evaluation
 CENTIPEDE_ARGV = ["--env", "centipede", "--train-iters", "4", "--iters-per-video", "4",
@@ -2962,39 +3009,173 @@ class StandInALE:
         return f"/roms/{name}.bin"
 
 
-def random_transition(hidden, num_actions, seed):
+def random_transition(hidden, num_actions, seed, latent=16):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return init_transition(gen, 16, num_actions, hidden=hidden)
+    return init_transition(gen, latent, num_actions, hidden=hidden)
 
 
 def shapes_kernel_checks(model, rng):
     """(a) both transition kernels against their plain versions at every
     case of SHAPE_CASES and shape of SHAPE_BATCHES: the bf16 kernel's two
     heads, the int8 kernel in a calibrated packing (``calibrated_qt``) and
-    the three static ones, each call's launch counted."""
-    checks, int8_checks = [], []
-    for hidden, acts in SHAPE_CASES:
-        params = random_transition(hidden, acts, SEED + hidden + acts)
-        pt = pack_transition_weights(params, 16, acts)
-        qt = calibrated_qt(model._replace(transition=params), binary_latents(rng, 1), acts)
+    the three static ones; the decoder at SHAPE_DECODE_LATENTS and
+    SHAPE_DECODE_COLORS; each call's launch counted."""
+    checks, int8_checks, d_errs = [], [], []
+
+    def counted(label, want, fn):
+        before = counters()
+        out = fn()
+        moved = {k: v - before[k] for k, v in counters().items()}
+        if moved != {**{k: 0 for k in moved}, **want}:
+            raise AssertionError(f"shapes (a): {label}: launches {moved}, the checks imply "
+                                 f"{want}")
+        return out
+
+    for lat, hidden, acts in SHAPE_CASES:
+        params = random_transition(hidden, acts, SEED + hidden + acts
+                                   + (0 if lat == 16 else 1000 * lat), lat)
+        pt = pack_transition_weights(params, lat, acts)
+        qt = calibrated_qt(model._replace(transition=params),
+                           binary_latents(rng, 1, latent=lat), acts)
         packings = {"calibrated": (qt.packed, "logit"),
                     **{f"static {order}": (pack(params), "sigmoid")
                        for order, pack in INT8_PACKINGS.items()}}
         for b, hw in SHAPE_BATCHES:
-            z, a = binary_latents(rng, b, hw), onehot_actions(rng, b, acts)
-            before = counters()
-            checks.append(check_transition(pt, z, a, 16, f" (hidden {hidden}, {acts} actions, "
-                                                         f"{hw}x{hw})"))
+            z, a = binary_latents(rng, b, hw, lat), onehot_actions(rng, b, acts)
+            label = f"latent {lat}, hidden {hidden}, {acts} actions, {hw}x{hw}"
+            checks.append(counted(label, {"fused_transition": 2},
+                                  lambda: check_transition(pt, z, a, lat, f" ({label})")))
             for name, (packed, head) in packings.items():
-                int8_checks.append(check_int8(f"h{hidden} a{acts} {name}", packed,
-                                              z.to(torch.int8), a, head))
-            moved = {k: v - before[k] for k, v in counters().items()}
-            want = {"fused_transition": 2, "fused_decode": 0,
-                    "int8_transition": 2 * len(packings)}
-            if moved != want:
-                raise AssertionError(f"shapes (a): hidden {hidden}, {acts} actions, B = {b}: "
-                                     f"launches {moved}, the checks imply {want}")
-    return checks, int8_checks
+                int8_checks.append(counted(label, {"int8_transition": 2}, lambda: check_int8(
+                    f"l{lat} h{hidden} a{acts} {name}", packed, z.to(torch.int8), a, head)))
+    for lat in SHAPE_DECODE_LATENTS:
+        for color in SHAPE_DECODE_COLORS:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 100 * lat + color)
+            pd = pack_decoder_weights(init_decoder(gen, lat, color), lat)
+            for b, hw in SHAPE_BATCHES:
+                z = binary_latents(rng, b, hw, lat)
+                label = f"latent {lat}, {color} colour(s), {hw}x{hw}"
+                d_errs.append(counted(label, {"fused_decode": 1},
+                                      lambda: check_decoder(pd, z, f" ({label})")))
+    return checks, int8_checks, d_errs
+
+
+def free_run_against_plain(tag, model, ds, num_actions, out_dir):
+    """``measure_prediction_mse`` at B = BATCH x TIMESTEPS through the
+    kernels, its launches as the path implies, and its first COMPARE_STEPS
+    steps against the plain path on the same batch (phase 4's check).
+    Returns the launches, the wall seconds and the peak device memory."""
+    latent = model.transition["conv6"]["w"].shape[-1]
+    pt = pack_transition_weights(model.transition, latent, num_actions)
+    pd = pack_decoder_weights(model.decoder, latent)
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = measure_prediction_mse(
+        model, ds, batch_size=BATCH, timesteps=TIMESTEPS, make_plots=False, out_dir=out_dir,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 16))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if result is None:
+        raise AssertionError(f"{tag}: degenerate trajectory batch")
+    check_launches(f"{tag} free-run", launches, {"fused_transition": TIMESTEPS - 1,
+                                                 "fused_decode": TIMESTEPS - 2,
+                                                 "int8_transition": 0})
+    main_curve = np.asarray(result[0][:COMPARE_STEPS])
+    with torch.inference_mode():
+        batch = ds.collect(BATCH, TIMESTEPS,
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 16))
+        short = tuple(x[:, :COMPARE_STEPS + 2] for x in batch)
+        k_curve = _free_run_stats(model, short, num_actions)[0].cpu().numpy()
+        p_curve = _free_run_stats(
+            model, short, num_actions,
+            transition_fn=lambda z, a: transition_plain(pt, z, a, dtype=torch.bfloat16),
+            decode_fn=lambda z: decode_plain(pd, z, dtype=torch.bfloat16))[0].cpu().numpy()
+    say(f"[shapes] {tag} measure_prediction_mse B={BATCH} T={TIMESTEPS}: {wall:.3f} s, peak "
+        f"{peak:.2f} GiB, launches {launches}; pixel MSE first {result[0][0]:.6g} last "
+        f"{result[0][-1]:.6g}")
+    say(f"[shapes] {tag} pixel MSE, first {COMPARE_STEPS} steps: main path "
+        f"{np.array2string(main_curve, precision=6)}")
+    say(f"[shapes] {tag}                                plain path "
+        f"{np.array2string(p_curve, precision=6)}")
+    if not np.isfinite(np.array(result)).all():
+        raise AssertionError(f"{tag}: non-finite MSE curves")
+    if not np.allclose(k_curve, main_curve, rtol=1e-5, atol=1e-7):
+        raise AssertionError(f"{tag}: the re-collected batch does not reproduce the main path")
+    if not np.allclose(main_curve, p_curve, rtol=CURVE_RTOL, atol=CURVE_ATOL):
+        raise AssertionError(f"{tag}: the free-run disagrees with the plain path")
+    return launches, wall, peak
+
+
+def latent8_gridworld():
+    """(d) a latent-8 gridworld model (tests/test_train.py's configuration)
+    trained LATENT8_ITERS iterations through ``trainer.train``, its
+    free-run on the kernels against the plain path, one bf16 and one int8
+    plan at the records' reference beam."""
+    ds = allocate_datasource("gridworld", seed=SEED, device="cuda")
+    acts = ds.binary_input_channels
+    cfg = Config(env="gridworld", seed=SEED, latent_dim=8, batch_size=4,
+                 train_iters=LATENT8_ITERS, iters_per_video=LATENT8_ITERS, horizon_min=3,
+                 horizon_max=5, learning_rate=1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses = []
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.train(cfg, ds, trainer.init_train_state(cfg, ds.spec, gen),
+                          log_fn=lambda it, m: losses.append(float(m["loss"])), generator=gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check_launches("shapes (d) train", counters(), {k: 0 for k in counters()})
+    model = state.params
+    if model.transition["conv6"]["w"].shape[-1] != 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"shapes (d): not a latent-8 model, or losses {losses}")
+    say(f"[shapes] (d) gridworld at latent {cfg.latent_dim}, hidden {cfg.hidden_dim}: "
+        f"{LATENT8_ITERS} iterations in {train_s:.3f} s, losses {np.round(losses, 5).tolist()}")
+    run_launches, _, _ = free_run_against_plain(
+        "(d)", model, ds, acts, tempfile.mkdtemp(prefix="chip_smoke_latent8_"))
+    z = seed_latents(model, ds, 1, SEED)
+    beam = dict(lookahead=MPC_LOOKAHEAD, rollout_depth=MPC_DEPTH)
+    qt = calibrated_qt(model, z, acts)
+    plans, plan_launches = {}, []
+    for name, planner, counter in (
+            ("bf16", make_planner(model, acts, **beam), "fused_transition"),
+            ("int8", make_planner(model, acts, use_int8=True, qt=qt, **beam), "int8_transition")):
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        action, scores = planner(z)
+        torch.cuda.synchronize()
+        plans[name] = (time.perf_counter() - t0, action)
+        plan_launches.append(counters())
+        check_launches(f"shapes (d) {name} plan", counters(),
+                       {**{k: 0 for k in counters()}, counter: MPC_DEPTH + 1})
+        if scores.shape != (acts,) or not torch.isfinite(scores).all():
+            raise AssertionError(f"shapes (d): the {name} plan's scores are not finite")
+    say(f"[shapes] (d) one plan at lookahead {MPC_LOOKAHEAD}, depth {MPC_DEPTH} "
+        f"({acts ** (MPC_LOOKAHEAD + 1)} beams of {z.shape[1]}x{z.shape[2]}x{z.shape[3]} "
+        f"latents): " + ", ".join(f"{k} {s:.3f} s (action {act})"
+                                  for k, (s, act) in plans.items()))
+    return {"launches": add_launches(run_launches, *plan_launches), "train_s": train_s,
+            "plan_s": {k: v[0] for k, v in plans.items()}}
+
+
+def wide_model_free_run(ds):
+    """(e) a random minipacman model at WIDE_MODEL's latent and hidden
+    widths free-run at full size through the kernels, against the plain
+    path, with its peak memory."""
+    latent, hidden = WIDE_MODEL
+    spec, acts = ds.spec, ds.binary_input_channels
+    model = init_world_model(torch.Generator(device="cuda").manual_seed(SEED + 32), latent,
+                             acts, spec.num_rewards, spec.channels, spec.channels,
+                             hidden=hidden, img_size=spec.height)
+    launches, wall, peak = free_run_against_plain(
+        f"(e) latent {latent}, hidden {hidden}", model, ds, acts,
+        tempfile.mkdtemp(prefix="chip_smoke_wide_"))
+    return {"launches": launches, "wall": wall, "peak_gib": peak}
 
 
 def student_h96():
@@ -3119,22 +3300,32 @@ def centipede_run():
             "plan_s": plan_s, "peak_gib": peak, "walls": (train_wall, eval_wall)}
 
 
-def shapes_phase(model):
-    """Every hidden width up to 128 and any action count on the card:
-    (a) both transition kernels against their plain versions at SHAPE_CASES;
-    (b) a student made at h96; (c) centipede's 18 actions.  Returns the
-    launches of (b) and (c), the kernel checks and the walls."""
+def shapes_phase(model, ds):
+    """Every model shape on the card: (a) the three kernels against their
+    plain versions at SHAPE_CASES and SHAPE_DECODE_LATENTS; (b) a student
+    made at h96; (c) centipede's 18 actions; (d) a latent-8 gridworld model
+    trained, free-run and planned; (e) a latent-32, hidden-256 model's
+    free-run.  Returns the launches of (b)-(e), the kernel checks and the
+    walls."""
     t_phase = time.perf_counter()
-    checks, int8_checks = shapes_kernel_checks(model, np.random.default_rng(SEED + 15))
+    checks, int8_checks, d_errs = shapes_kernel_checks(model, np.random.default_rng(SEED + 15))
     t_checks = time.perf_counter() - t_phase
     made = student_h96()
     cent = centipede_run()
+    t0 = time.perf_counter()
+    small = latent8_gridworld()
+    t_small = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = wide_model_free_run(ds)
+    t_wide = time.perf_counter() - t0
     walls = {"checks": t_checks, "student_h96": made["wall"], "centipede_plan": cent["plan_s"],
-             "phase": time.perf_counter() - t_phase}
+             "latent8": t_small, "wide": t_wide, "phase": time.perf_counter() - t_phase}
     say("[shapes] wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
-    return {"launches": add_launches(made["launches"], cent["launches"]), "checks": checks,
-            "int8_checks": int8_checks, "walls": walls, "plan_s": cent["plan_s"],
-            "peak_gib": cent["peak_gib"]}
+    return {"launches": add_launches(made["launches"], cent["launches"], small["launches"],
+                                     wide["launches"]),
+            "checks": checks, "int8_checks": int8_checks, "d_errs": d_errs, "walls": walls,
+            "plan_s": cent["plan_s"], "peak_gib": cent["peak_gib"],
+            "wide_peak_gib": wide["peak_gib"]}
 
 
 def main() -> int:
@@ -3159,9 +3350,12 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     lib = _build.library()
     say(f"[build] {lib_path.name} in {build_s:.2f} s")
-    smem = {f"conv3x3_wgmma<{n},": lib.scm_transition_smem(n) for n in HIDDENS}
-    smem.update({f"conv3x3_s8<{n},": lib.scm_int8_smem(n) for n in HIDDENS})
-    smem["decode_kernel"] = lib.scm_decode_smem()
+    smem = {f"conv3x3_wgmma<{n},": lib.scm_transition_smem(n) for n in N_TILES}
+    smem.update({f"conv3x3_s8<{n},": lib.scm_int8_smem(n) for n in N_TILES})
+    # the decoder's at latent 16 (hidden 64), and at latent 32 and 64
+    smem.update({f"decode_kernel<{np_}>": lib.scm_decode_smem(16, 16 * np_)
+                 for np_ in (1, 2, 3, 4)})
+    smem["decode_kernel<0>"] = max(lib.scm_decode_smem(lp, 4 * lp) for lp in (32, 64))
     for r in _build.ptxas_report():
         dyn = next((v for k, v in smem.items() if r["kernel"].startswith(k)), None)
         say(f"[build] {r['kernel']}: {r['registers']} registers, shared "
@@ -3392,27 +3586,39 @@ def main() -> int:
             row["bf16_ms"] = times[bf16_key]["ms"]
             int8_orders[width] = row
         int8_orders[48]["calibrated_joint"] = times["transition_int8_v2"]["ms"]
-        # both kernels at the widths no shipped model has (random weights;
-        # 50 and 104 run at 64 and 112 on zero-padded operands)
+        # both kernels at the shapes no shipped model has (random weights;
+        # 50 and 104 run at 64 and 112 on zero-padded operands, 144 and
+        # 256 as two output-channel tiles, latents 8 and 32 as conv1's K
+        # and the head's N zero-padded to 16 and 32)
         width_times = {}
-        for hidden in SHAPE_TIME_WIDTHS:
-            params = random_transition(hidden, num_actions, SEED + hidden)
-            pw = pack_transition_weights(params, latent, num_actions)
+        for lat, hidden in SHAPE_TIME_CASES:
+            params = random_transition(hidden, num_actions, SEED + hidden, lat)
+            pw = pack_transition_weights(params, lat, num_actions)
             qw = quantize_transition(params).packed
-            width_times[hidden] = {
-                "ms": cuda_ms(lambda: fused_transition(pw, z, a)),
-                "plain_ms": cuda_ms(lambda: transition_plain(pw, z, a, dtype=bf16), iters=5),
-                "library_ms": cuda_ms(lambda: library_transition(pw, z, a)),
-                "bound": bound(*transition_cost(pw, z, a)),
-                "int8_ms": cuda_ms(lambda: i8.int8_transition(qw, zi, a, head="sigmoid")),
+            zw = z if lat == latent else binary_latents(rng, BATCH, latent=lat)
+            zwi = zw.to(torch.int8)
+            width_times[shape_key(lat, hidden)] = {
+                "latent": lat, "hidden": hidden,
+                "ms": cuda_ms(lambda: fused_transition(pw, zw, a)),
+                "plain_ms": cuda_ms(lambda: transition_plain(pw, zw, a, dtype=bf16), iters=5),
+                "library_ms": cuda_ms(lambda: library_transition(pw, zw, a)),
+                "bound": bound(*transition_cost(pw, zw, a)),
+                "int8_ms": cuda_ms(lambda: i8.int8_transition(qw, zwi, a, head="sigmoid")),
                 "int8_plain_ms": cuda_ms(lambda: i8.int8_transition_plain(
-                    qw, zi, a, head="sigmoid"), iters=3),
-                "int8_bound": bound(*int8_cost(qw, zi, a), peak=PEAK_INT8_OPS)}
-    d_flops = 2 * b * h * w * 9 * (latent * pd["w1"].shape[-1]
-                                   + pd["w1"].shape[-1] * color)
-    d_bytes = (nbytes(z, pd["w1"], pd["w2"], pd["b1"], pd["b2"])
-               + b * h * w * color * 2)
-    times["fused_decode"]["bound"] = bound(d_flops, d_bytes)
+                    qw, zwi, a, head="sigmoid"), iters=3),
+                "int8_bound": bound(*int8_cost(qw, zwi, a), peak=PEAK_INT8_OPS)}
+        # the decoder at the other latents (random weights, intermediate 4L)
+        decode_times = {}
+        for lat in DECODE_TIME_LATENTS:
+            pl_ = pack_decoder_weights(init_decoder(
+                torch.Generator(device="cuda").manual_seed(SEED + lat), lat, color), lat)
+            zl = binary_latents(rng, BATCH, latent=lat)
+            decode_times[lat] = {
+                "ms": cuda_ms(lambda: fused_decode(pl_, zl)),
+                "plain_ms": cuda_ms(lambda: decode_plain(pl_, zl, dtype=bf16), iters=5),
+                "library_ms": cuda_ms(lambda: library_decode(pl_, zl)),
+                "bound": bound(*decode_cost(pl_, zl))}
+    times["fused_decode"]["bound"] = bound(*decode_cost(pd, z))
     for name, t in times.items():
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         say(f"[time] {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -3422,13 +3628,20 @@ def main() -> int:
         say(f"[time] int8 kernel at hidden {width}, ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k != "bf16_ms")
             + f"; bf16 kernel at hidden {width}: {row['bf16_ms']:.4f}")
-    for hidden, r in width_times.items():
-        say(f"[time] hidden {hidden} (kernel width {kernel_hidden(hidden)}, random weights): "
+    for r in width_times.values():
+        hp = kernel_hidden(r["hidden"])
+        say(f"[time] latent {r['latent']}, hidden {r['hidden']} (kernel width {hp}, N tiles "
+            f"{[n for _, n in n_tiles(hp)]}, random weights): "
             f"bf16 kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
             f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} ({r['bound'][1]}; "
             f"{100 * r['bound'][0] / r['ms']:.1f}% of bound); int8 kernel (static joint) "
             f"{r['int8_ms']:.4f} ms, plain {r['int8_plain_ms']:.4f}, bound "
             f"{r['int8_bound'][0]:.4f} ({r['int8_bound'][1]})")
+    for lat, r in decode_times.items():
+        say(f"[time] decoder at latent {lat} (intermediate {4 * lat}, {color} colours, random "
+            f"weights): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN "
+            f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} ({r['bound'][1]}; "
+            f"{100 * r['bound'][0] / r['ms']:.1f}% of bound)")
 
     # 8. the fourth main path: MPC planning and play (gridworld_cf, pong_cf_60k)
     mpc = mpc_phase()
@@ -3460,11 +3673,13 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     mesh = mesh_phase(model, ds)
 
-    # 14. every hidden width up to 128 and any action count: the kernels at
-    # the widths no shipped model has, a student made at h96, centipede
+    # 14. every model shape: the kernels at the shapes no shipped model has,
+    # a student made at h96, centipede, a latent-8 and a latent-32 /
+    # hidden-256 model
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
-    shapes = shapes_phase(model)
+    shapes = shapes_phase(model, ds)
     t_err = max([t_err] + [c["t_err"] for c in shapes["checks"]])
+    d_err = max([d_err] + shapes["d_errs"])
 
     # 15. the kernels line.  launches: the sum over the main paths, each
     # counted from 0 (launches_by_path splits it).
@@ -3491,6 +3706,9 @@ def main() -> int:
     widths = {h: {"ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                   "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
               for h, r in width_times.items()}
+    latents_d = {lat: {"ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                       "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                 for lat, r in decode_times.items()}
     widths_int8 = {h: {"ms": r["int8_ms"], "plain_ms": r["int8_plain_ms"],
                        "bound_ms": r["int8_bound"][0], "bound_by": r["int8_bound"][1]}
                    for h, r in width_times.items()}
@@ -3513,7 +3731,7 @@ def main() -> int:
                         for k, r in mpc["times"].items()}),
         row("fused_decode", "fused_decode", "scmgan_tpu_torch/csrc/fused_decoder.cu",
             "scmgan_tpu/ops/pallas/fused_decoder.py:126", d_err,
-            counter="fused_decode", fid_counter="fused_decode"),
+            counter="fused_decode", fid_counter="fused_decode", latents=latents_d),
         *(row(name, name, "scmgan_tpu_torch/csrc/int8_transition.cu", replaces,
               int8_err[name],
               counter="int8_transition", fid_counter="int8_transition",

@@ -1,10 +1,12 @@
 // One circular 3x3 conv of the int8 (w8a8) transition step as a Hopper
-// kernel: the template behind csrc/int8_transition.cu.  Each output width is
-// instantiated in its own translation unit (int8_h*.cu, int8_head.cu) so
-// that the parallel nvcc calls share the build.
+// kernel: the template behind csrc/int8_transition.cu.  Each output tile
+// width is instantiated in its own translation unit (int8_h*.cu,
+// int8_head.cu) so that the parallel nvcc calls share the build.
 //
 // An implicit GEMM: M = the batch's pixels, N = the output channels, K =
-// 9 taps x the input channels, s8 x s8 products summed exactly in s32.  The
+// 9 taps x the input channels, s8 x s8 products summed exactly in s32.  One
+// launch computes one N tile of BN <= 128 channels, from channel n_off of a
+// layer ldo channels wide (int8_transition.cu's tile plan).  The
 // design is the bf16 kernel's (transition_conv.cuh), whose byte layout
 // carries over: wgmma's depth is 32 bytes for both types (k16 bf16, k32 s8).
 //
@@ -15,8 +17,9 @@
 //     masked.
 //   * A (activations): three producer warps copy the tile's input rows
 //     y0-1 .. y0+R (taken mod H) x the row's pixels (x-halo taken mod W) x
-//     one input tensor (at most 128 channels: one 128-byte slot a pixel)
-//     into shared memory with cp.async, once per K segment, into a double
+//     one K segment -- an input tensor, or 128 channels of a wider one (one
+//     128-byte slot a pixel) -- into shared memory with cp.async, once per
+//     K segment, into a double
 //     buffer guarded by mbarriers (a_full: every copy landed, counted by
 //     cp.async.mbarrier.arrive; a_empty: every consumer warp is done), so
 //     the consumers spend no instructions on it and never wait for each
@@ -28,12 +31,14 @@
 //     pair, so a pair may span two taps (lanes 0-15 give ldmatrix the first
 //     unit's row addresses, lanes 16-31 the second's).  A segment of u units
 //     takes ceil(9u / 2) steps: 14 at hidden 48 (27 units), 5 for conv1's
-//     16 latent channels.  A second segment (the U-Net skip of conv5/conv6)
-//     starts a new step, so the split orders can keep its sums apart.
+//     16 latent channels.  Every segment starts a new step; the split orders
+//     add the segments of the main tensor into one sum and those of the
+//     U-Net skip (conv5/conv6's second tensor) into another.
 //   * A goes to wgmma from registers: the ldmatrix x4 fragment (16 rows x
 //     32 bytes) is the per-warp A fragment of wgmma m64nNk32 s8.
 //   * B (weights): one producer thread streams 128-byte K tiles (4 steps)
-//     of all N output channels (the layout pack_kernel_weights emits) by TMA
+//     of the tile's BN output channels (rows n_off .. n_off + BN - 1 of the
+//     layout pack_kernel_weights emits) by TMA
 //     with the 128-byte swizzle into a ring of mbarrier-guarded stages; the
 //     consumers read them through wgmma descriptors.
 //   * Two consumer warpgroups.  Joint sums: two m64 tiles each, every
@@ -71,6 +76,7 @@ constexpr int CONSUMERS = 256;           // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 128; // and the producer warpgroup
 constexpr int LOADERS = 96;              // producer threads that copy activations
 constexpr int UNIT = 16;                 // channels (bytes) of one K unit
+constexpr int SEG_UNITS = 8;             // units of a K segment at most (one 128-byte slot)
 constexpr int A_SLOTS = 6 * 66;          // input pixels a segment buffer holds
 constexpr int A_BYTES = A_SLOTS * 128;
 constexpr int SMEM_MAX = 232448;         // dynamic shared memory a block may take
@@ -83,24 +89,39 @@ __host__ __device__ constexpr int seg_tiles(int u) { return (seg_steps(u) + 3) /
 
 struct ConvArgs {
   const signed char* in0;   // NHWC, c0 channels
-  const signed char* in1;   // NHWC, c1 channels (second K segment), or null
-  const float* scale0;      // (cout): the joint scale, or segment 0's
-  const float* scale1;      // (cout): segment 1's (split orders), else null
-  const float* bias;        // (cout)
-  const float* requant;     // (cout): hidden layers; null for the head
+  const signed char* in1;   // NHWC, c1 channels (the U-Net skip), or null
+  const float* scale0;      // (ldo): the joint scale, or in0's
+  const float* scale1;      // (ldo): in1's (split orders), else null
+  const float* bias;        // (ldo)
+  const float* requant;     // (ldo): hidden layers; null for the head
   const float* act;         // (batch, actions) one-hot, conv1 only (else null)
-  const int* wact;          // (actions, cout): conv1's action weights summed over taps
-  signed char* out;         // NHWC, cout channels
+  const int* wact;          // (actions, ldo): conv1's action weights summed over taps
+  signed char* out;         // NHWC, ldo channels
   int batch, height, width, actions;
-  int c0, c1;               // channels of each segment: multiples of 16, at most 128
+  int c0, c1;               // channels of each input tensor: multiples of 16
+  int ldo, n_off;           // the layer's output channels; this tile's first
   int order, head;          // head: REQUANT for conv1-5, LOGIT / SIGMOID / SAMPLE for conv6
   int tw, tws, rows;        // tile width, input slots a row, tile rows
   int row_blocks, col_blocks;
   unsigned long long seed;  // sample head
 };
 
+// K segment s of a conv whose input tensors hold u0 and u1 units: each
+// tensor in segments of SEG_UNITS units and the rest, in0's first.  t: the
+// tensor; off: its first channel; u: its units.
+struct Seg {
+  int t, off, u;
+};
+__host__ __device__ inline int seg_count(int u) { return (u + SEG_UNITS - 1) / SEG_UNITS; }
+__host__ __device__ inline Seg seg_of(int s, int u0, int u1) {
+  const int n0 = seg_count(u0);
+  const int t = s < n0 ? 0 : 1, q = t ? s - n0 : s, ut = t ? u1 : u0;
+  const int u = ut - q * SEG_UNITS < SEG_UNITS ? ut - q * SEG_UNITS : SEG_UNITS;
+  return {t, q * SEG_UNITS * UNIT, u};
+}
+
 // What a consumer warpgroup holds: MT m64 tiles, each with one s32 sum
-// (joint) or one per K segment (split orders).  Two split tiles at N >= 80
+// (joint) or one per input tensor (split orders).  Two split tiles at N >= 80
 // would take 2 x 2 x N/2 accumulator registers a thread, so there it holds
 // one and the block's tile is 128 pixels.
 template <int BN, int SPLIT>
@@ -220,11 +241,15 @@ __device__ __forceinline__ void segment_mma(typename Shape<BN, SPLIT>::Acc& acc,
     if (t * MT + MT - 1 > G - 1 - NB) release(ring[t]);
 }
 
-// The segment's unit count picks the straight-line code: conv1's 16 latent
-// channels (1 unit) or the hidden width at N = hidden; any hidden width (1 to
-// 8 units) at N = 16, which serves the head and, at hidden 16, the hidden
-// layers too.
-template <int BN, int SPLIT, int S>
+// The segment's unit count picks the straight-line code.  GEN = 0 compiles
+// what a layer of the tile's own width reads -- conv1's 16 latent channels
+// (1 unit) and the width (BN / 16) -- and nothing more (lengths compiled in
+// and never read cost time: eight cost the head launch about 6% over four).
+// GEN = 1, and N = 16 (the head, and the hidden layers at hidden 16),
+// compile every length of 1 to 8 units, for the N tiles of wider layers,
+// their split K and conv1 at other latent widths.  The host picks GEN so
+// that no other length reaches the kernel.
+template <int BN, int SPLIT, int GEN, int S>
 __device__ __forceinline__ void segment(int u, typename Shape<BN, SPLIT>::Acc& acc,
                                         uint32_t abuf,
                                         const int (&rbase)[Shape<BN, SPLIT>::MT],
@@ -234,7 +259,7 @@ __device__ __forceinline__ void segment(int u, typename Shape<BN, SPLIT>::Acc& a
 #define SCM_SEG(UU)                                                              \
   segment_mma<BN, SPLIT, UU, S>(acc, abuf, rbase, col, tws, lane, b_stages, full, \
                                  empty, stage, phase)
-  if constexpr (BN == 16) {
+  if constexpr (BN == 16 || GEN) {
     switch (u) {
       case 1: SCM_SEG(1); break;
       case 2: SCM_SEG(2); break;
@@ -254,7 +279,12 @@ __device__ __forceinline__ void segment(int u, typename Shape<BN, SPLIT>::Acc& a
 #undef SCM_SEG
 }
 
-template <int BN, int SPLIT>
+// GEN = 0: each input tensor is one K segment (at most 128 channels) of a
+// length a layer of the tile's own width reads, the shipped widths' case,
+// whose bookkeeping stays compile-time simple (the general form cost every
+// launch about 2 µs); GEN = 1: tensors of any width, in segments of 128
+// channels and the rest (seg_of), of any length.
+template <int BN, int SPLIT, int GEN>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
   using L = Layout<BN>;
@@ -274,7 +304,10 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
   const int tid = threadIdx.x;
   const int H = p.height, W = p.width;
   const int u0 = p.c0 / UNIT, u1 = p.c1 / UNIT;
-  const int nseg = u1 > 0 ? 2 : 1;
+  const int nseg = GEN ? seg_count(u0) + seg_count(u1) : (u1 > 0 ? 2 : 1);
+  auto seg_at = [&](int s) -> Seg {
+    return GEN ? seg_of(s, u0, u1) : Seg{s, 0, s == 0 ? u0 : u1};
+  };
   const int tiles_per_image = p.row_blocks * p.col_blocks;
   const int tiles = p.batch * tiles_per_image;
   const int TW = p.tw, TWS = p.tws, R = p.rows;
@@ -287,10 +320,11 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
   };
 
   for (int i = tid; i < BN; i += THREADS) {
-    par_s[i] = p.scale0[i];
-    par_s[BN + i] = SPLIT ? p.scale1[i] : 0.f;
-    par_s[2 * BN + i] = p.bias[i];
-    par_s[3 * BN + i] = p.requant != nullptr ? p.requant[i] : 0.f;
+    const int n = p.n_off + i;
+    par_s[i] = p.scale0[n];
+    par_s[BN + i] = SPLIT ? p.scale1[n] : 0.f;
+    par_s[2 * BN + i] = p.bias[n];
+    par_s[3 * BN + i] = p.requant != nullptr ? p.requant[n] : 0.f;
   }
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
@@ -313,7 +347,11 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
       // weight tiles by TMA
       asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&wmap))
                    : "memory");
-      const int ktiles = seg_tiles(u0) + (u1 > 0 ? seg_tiles(u1) : 0);
+      int ktiles = 0;
+      if (GEN)
+        for (int seg = 0; seg < nseg; ++seg) ktiles += seg_tiles(seg_of(seg, u0, u1).u);
+      else
+        ktiles = seg_tiles(u0) + (u1 > 0 ? seg_tiles(u1) : 0);
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
@@ -321,7 +359,7 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_arrive_expect_tx(&full[stage], L::STAGE_BYTES);
           tma_load_2d(base_s + L::B_OFF + stage * L::STAGE_BYTES, &wmap, &full[stage], 0,
-                      t * BN);
+                      t * p.ldo + p.n_off);
           if (++stage == L::STAGES) { stage = 0; phase ^= 1; }
         }
     } else if (ptid >= 32) {
@@ -339,8 +377,10 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
         for (int seg = 0; seg < nseg; ++seg, ++it) {
           const int buf = it & 1;
           mbar_wait(&a_empty[buf], ((it >> 1) & 1) ^ 1);
-          const int u = seg == 0 ? u0 : u1, c = u * UNIT;
-          const signed char* src = (seg == 0 ? p.in0 : p.in1) + (long long)b * H * W * c;
+          const Seg sg = seg_at(seg);
+          // c: the tensor's pixel stride
+          const int u = sg.u, c = GEN ? (sg.t ? p.c1 : p.c0) : u * UNIT;
+          const signed char* src = (sg.t ? p.in1 : p.in0) + (long long)b * H * W * c + sg.off;
           const int n = (r_eff + 2) * TWS * u;
           const uint32_t dst0 = base_s + L::A_OFF + buf * A_BYTES;
           const int dslot = LOADERS / u, dj = LOADERS - dslot * u;
@@ -421,7 +461,7 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
       int v = 0;
       if (p.act != nullptr)
         for (int a = 0; a < p.actions; ++a)
-          v += (int)p.act[(long long)b * p.actions + a] * p.wact[a * BN + ch];
+          v += (int)p.act[(long long)b * p.actions + a] * p.wact[a * p.ldo + p.n_off + ch];
       tex[ch] = v;
     }
     named_barrier(2 + wg, 128);
@@ -443,13 +483,13 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
       const int buf = it & 1;
       mbar_wait(&a_full[buf], (it >> 1) & 1);
       const uint32_t abuf = a_base + buf * A_BYTES;
-      const int u = seg == 0 ? u0 : u1;
-      if (NS == 2 && seg == 1)
-        segment<BN, SPLIT, NS - 1>(u, acc, abuf, rbase, col, TWS, lane, b_stages, full,
-                                    empty, stage, phase);
+      const Seg sg = seg_at(seg);
+      if (NS == 2 && sg.t == 1)
+        segment<BN, SPLIT, GEN, NS - 1>(sg.u, acc, abuf, rbase, col, TWS, lane, b_stages, full,
+                                         empty, stage, phase);
       else
-        segment<BN, SPLIT, 0>(u, acc, abuf, rbase, col, TWS, lane, b_stages, full, empty,
-                               stage, phase);
+        segment<BN, SPLIT, GEN, 0>(sg.u, acc, abuf, rbase, col, TWS, lane, b_stages, full,
+                                    empty, stage, phase);
       __syncwarp();
       if (lane == 0) mbar_arrive(&a_empty[buf]);
     }
@@ -510,7 +550,10 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
             } else {
               long long gm;
               pixel(mrow0 + g + 8 * h, gm);
-              q[e] = philox_uniform((unsigned long long)gm * BN + n + e, p.seed) < sigmoid(y);
+              // the element's flat index in (B, H, W, ldo): the bits do
+              // not depend on the tiling
+              q[e] = philox_uniform((unsigned long long)gm * p.ldo + p.n_off + n + e, p.seed) <
+                     sigmoid(y);
             }
           }
           *reinterpret_cast<uint16_t*>(stg + (g + 8 * h) * L::STG_PITCH + n) =
@@ -523,7 +566,7 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
         const int row = v / VEC, qv = v - row * VEC;
         long long gm;
         if (pixel(mrow0 + row, gm))
-          *reinterpret_cast<uint4*>(p.out + gm * BN + qv * 16) =
+          *reinterpret_cast<uint4*>(p.out + gm * p.ldo + p.n_off + qv * 16) =
               *reinterpret_cast<const uint4*>(stg + row * L::STG_PITCH + qv * 16);
       }
       __syncwarp();
@@ -532,10 +575,10 @@ conv3x3_s8(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
 }
 
 // Launch over a persistent grid (one block an SM).
-template <int BN, int SPLIT>
+template <int BN, int SPLIT, int GEN>
 cudaError_t launch_conv(const ConvArgs& a, const CUtensorMap& wmap, cudaStream_t stream) {
   using L = Layout<BN>;
-  cudaError_t e = cudaFuncSetAttribute(conv3x3_s8<BN, SPLIT>,
+  cudaError_t e = cudaFuncSetAttribute(conv3x3_s8<BN, SPLIT, GEN>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
@@ -544,7 +587,7 @@ cudaError_t launch_conv(const ConvArgs& a, const CUtensorMap& wmap, cudaStream_t
     return e;
   const long long tiles = (long long)a.batch * a.row_blocks * a.col_blocks;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  conv3x3_s8<BN, SPLIT><<<grid, THREADS, L::ALLOC, stream>>>(a, wmap);
+  conv3x3_s8<BN, SPLIT, GEN><<<grid, THREADS, L::ALLOC, stream>>>(a, wmap);
   return cudaGetLastError();
 }
 

@@ -52,22 +52,29 @@
 
 using namespace scm_i8;
 
-// Instantiated in int8_h{32,48,64,80,96,112,128}.cu and int8_head.cu (N = 16:
-// the head, and the hidden layers at hidden 16).
-#define SCM_EXTERN(BN, SPLIT)                                                  \
-  extern template cudaError_t scm_i8::launch_conv<BN, SPLIT>(                 \
+// Instantiated in int8_h{32,48,64,80,96,112,128}.cu and int8_head.cu (N =
+// 16: the head, the hidden layers at hidden 16 and the 16-wide N tiles of
+// wider ones), GEN 0 and 1 each.
+#define SCM_EXTERN(BN, SPLIT, GEN)                                             \
+  extern template cudaError_t scm_i8::launch_conv<BN, SPLIT, GEN>(            \
       const ConvArgs&, const CUtensorMap&, cudaStream_t);
-SCM_EXTERN(32, 0) SCM_EXTERN(32, 1)
-SCM_EXTERN(48, 0) SCM_EXTERN(48, 1)
-SCM_EXTERN(64, 0) SCM_EXTERN(64, 1)
-SCM_EXTERN(80, 0) SCM_EXTERN(80, 1)
-SCM_EXTERN(96, 0) SCM_EXTERN(96, 1)
-SCM_EXTERN(112, 0) SCM_EXTERN(112, 1)
-SCM_EXTERN(128, 0) SCM_EXTERN(128, 1)
-SCM_EXTERN(16, 0) SCM_EXTERN(16, 1)
+#define SCM_EXTERN_N(BN)                                                       \
+  SCM_EXTERN(BN, 0, 0) SCM_EXTERN(BN, 1, 0) SCM_EXTERN(BN, 0, 1) SCM_EXTERN(BN, 1, 1)
+SCM_EXTERN_N(16)
+SCM_EXTERN_N(32)
+SCM_EXTERN_N(48)
+SCM_EXTERN_N(64)
+SCM_EXTERN_N(80)
+SCM_EXTERN_N(96)
+SCM_EXTERN_N(112)
+SCM_EXTERN_N(128)
+#undef SCM_EXTERN_N
 #undef SCM_EXTERN
 
 namespace {
+
+constexpr int MAX_TILE_N = 128;   // the widest instantiation
+constexpr int HEAD_TILE_N = 16;   // the head's N tiles
 
 // A tile plan (ops/kernels/fused_transition.py::tile_plan).
 struct Plan {
@@ -80,91 +87,83 @@ bool plan_ok(const Plan& p, int height, int width, int tile_m) {
          (long long)p.row_blocks * p.rows >= height && (long long)p.col_blocks * p.tw >= width;
 }
 
-// One conv on its tile plan: 256-pixel tiles, or 128 where a warpgroup
-// holds one split tile.
-template <int BN, int SPLIT>
-cudaError_t conv(ConvArgs a, const void* w, const Plan& p256, const Plan& p128,
-                 cudaStream_t stream) {
-  const Plan& pl = Shape<BN, SPLIT>::TILE_M == 256 ? p256 : p128;
-  a.tw = pl.tw; a.tws = pl.tws; a.rows = pl.rows;
-  a.row_blocks = pl.row_blocks; a.col_blocks = pl.col_blocks;
-  const int ktiles = seg_tiles(a.c0 / UNIT) + (a.c1 > 0 ? seg_tiles(a.c1 / UNIT) : 0);
-  CUtensorMap map;
-  const cudaError_t e =
-      scm::weight_map(&map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ktiles * BN, BN);
-  if (e != cudaSuccess) return e;
-  return launch_conv<BN, SPLIT>(a, map, stream);
+// Whether the GEN = 0 instantiation at tile width bn takes an input tensor
+// of c channels (none: c = 0): one K segment, of a length it compiles
+// (int8_conv.cuh, segment and conv3x3_s8).
+bool fits(int bn, int split, int c) {
+  const int u = c / UNIT;
+  return u <= SEG_UNITS && (u == 0 || bn == 16 || u == bn / 16 || (u == 1 && !split));
 }
 
-// The six launches of one step at hidden width HID.
-template <int HID>
-cudaError_t step(ConvArgs a, const void* z, const void* act, const void* wact,
-                 const void* const* w,
-                 const void* const* s, const void* s5b, const void* s6b,
-                 const void* const* b, const void* const* rq, void* h1, void* h2,
-                 void* h3, void* h4, void* out, int order, const Plan& p256,
-                 const Plan& p128, cudaStream_t stream) {
-  typedef const signed char* In;
-  typedef signed char* Out;
-  typedef const float* F;
-  const int head = a.head;
-  const bool split = order != JOINT;
-  cudaError_t e;
-
-  // conv1: z -> h1; the one-hot action half is a per-sample int32 bias
-  a.in0 = (In)z; a.in1 = nullptr; a.c0 = UNIT; a.c1 = 0;
-  a.act = (const float*)act; a.wact = (const int*)wact; a.order = JOINT; a.head = REQUANT;
-  a.scale0 = (F)s[0]; a.scale1 = nullptr; a.bias = (F)b[0]; a.requant = (F)rq[0];
-  a.out = (Out)h1;
-  if ((e = conv<HID, 0>(a, w[0], p256, p128, stream)) != cudaSuccess) return e;
-
-  a.act = nullptr; a.wact = nullptr; a.c0 = HID;
-  // conv2: h1 -> h2; conv3: h2 -> h3; conv4: h3 -> h4
-  a.in0 = (In)h1; a.scale0 = (F)s[1]; a.bias = (F)b[1]; a.requant = (F)rq[1];
-  a.out = (Out)h2;
-  if ((e = conv<HID, 0>(a, w[1], p256, p128, stream)) != cudaSuccess) return e;
-  a.in0 = (In)h2; a.scale0 = (F)s[2]; a.bias = (F)b[2]; a.requant = (F)rq[2];
-  a.out = (Out)h3;
-  if ((e = conv<HID, 0>(a, w[2], p256, p128, stream)) != cudaSuccess) return e;
-  a.in0 = (In)h3; a.scale0 = (F)s[3]; a.bias = (F)b[3]; a.requant = (F)rq[3];
-  a.out = (Out)h4;
-  if ((e = conv<HID, 0>(a, w[3], p256, p128, stream)) != cudaSuccess) return e;
-
-  // conv5: [h4 | h2] -> h5 (into h3's buffer), in the packing's order
-  a.in0 = (In)h4; a.in1 = (In)h2; a.c1 = HID;
-  a.scale0 = (F)s[4]; a.bias = (F)b[4]; a.requant = (F)rq[4]; a.out = (Out)h3;
-  if (split) {
-    a.order = order; a.scale1 = (F)s5b;
-    e = conv<HID, 1>(a, w[4], p256, p128, stream);
-  } else {
-    e = conv<HID, 0>(a, w[4], p256, p128, stream);
-  }
+// One N tile of width bn on its tile plan (256-pixel tiles, or 128 where a
+// warpgroup holds one split tile): the weight map over the layer's (tile,
+// ldo, 128) layout, read as boxes of bn rows, and the launch of the
+// instantiation for bn.
+template <int SPLIT, int GEN>
+cudaError_t tile(ConvArgs a, const void* w, int bn, const Plan& p256, const Plan& p128,
+                 cudaStream_t stream) {
+  const Plan& pl = (SPLIT && bn >= 80) ? p128 : p256;
+  a.tw = pl.tw; a.tws = pl.tws; a.rows = pl.rows;
+  a.row_blocks = pl.row_blocks; a.col_blocks = pl.col_blocks;
+  const int u0 = a.c0 / UNIT, u1 = a.c1 / UNIT;
+  int ktiles = 0;
+  for (int s = 0; s < seg_count(u0) + seg_count(u1); ++s) ktiles += seg_tiles(seg_of(s, u0, u1).u);
+  CUtensorMap map;
+  const cudaError_t e =
+      scm::weight_map(&map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ktiles * a.ldo, bn);
   if (e != cudaSuccess) return e;
+  switch (bn) {
+    case 16: return launch_conv<16, SPLIT, GEN>(a, map, stream);
+    case 32: return launch_conv<32, SPLIT, GEN>(a, map, stream);
+    case 48: return launch_conv<48, SPLIT, GEN>(a, map, stream);
+    case 64: return launch_conv<64, SPLIT, GEN>(a, map, stream);
+    case 80: return launch_conv<80, SPLIT, GEN>(a, map, stream);
+    case 96: return launch_conv<96, SPLIT, GEN>(a, map, stream);
+    case 112: return launch_conv<112, SPLIT, GEN>(a, map, stream);
+    case 128: return launch_conv<128, SPLIT, GEN>(a, map, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
-  // conv6: [h5 | h1] -> logits -> the head's int8 bits
-  a.in0 = (In)h3; a.in1 = (In)h1; a.scale0 = (F)s[5]; a.scale1 = split ? (F)s6b : nullptr;
-  a.bias = (F)b[5]; a.requant = nullptr; a.head = head; a.out = (Out)out;
-  return split ? conv<16, 1>(a, w[5], p256, p128, stream)
-               : conv<16, 0>(a, w[5], p256, p128, stream);
+// One conv of cout output channels: hidden layers as N tiles of 128 and the
+// rest, the head (a.head != REQUANT) as N tiles of 16; each tile's launch
+// reads the whole input again.
+cudaError_t conv(ConvArgs a, const void* w, int cout, int split, const Plan& p256,
+                 const Plan& p128, cudaStream_t stream) {
+  a.ldo = cout;
+  const int step = a.head == REQUANT ? MAX_TILE_N : HEAD_TILE_N;
+  for (int n0 = 0; n0 < cout; n0 += step) {
+    const int bn = cout - n0 < step ? cout - n0 : step;
+    a.n_off = n0;
+    const bool gen = !(fits(bn, split, a.c0) && fits(bn, split, a.c1));
+    cudaError_t e;
+    if (split) e = gen ? tile<1, 1>(a, w, bn, p256, p128, stream)
+                       : tile<1, 0>(a, w, bn, p256, p128, stream);
+    else e = gen ? tile<0, 1>(a, w, bn, p256, p128, stream)
+                 : tile<0, 0>(a, w, bn, p256, p128, stream);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// One int8 transition step: z (B,H,W,16) int8 latents (zero-padded to 16
-// channels) and act (B,actions) f32 one-hot actions -> out (B,H,W,16) int8
-// bits.  wact is conv1's action half summed over taps ((actions, hidden)
-// int32).  h1..h4 are caller-allocated (B,H,W,hidden) int8 scratch; h5
-// reuses h3's buffer.  k1..k6 are the weights of pack_kernel_weights
-// ((tiles, cout, 128) int8), s1..s6 the f32 dequant scales (conv5/conv6:
-// segment 0's; s5b, s6b segment 1's under a split order, else null), b1..b6
-// the f32 biases, r1..r5 the f32 requant multipliers.  order: 0 joint, 1
-// (pa*sa + pb*sb) + b, 2 (pa*sa + b) + pb*sb.  head: 1 logits > 0, 2
-// sigmoid > 0.5, 3 Philox sample keyed by seed.  (tw, tws, rows, row_blocks,
-// col_blocks) is the 256-pixel tile plan of
+// One int8 transition step: z (B,H,W,latent_pad) int8 latents (zero-padded
+// to a multiple of 16 channels) and act (B,actions) f32 one-hot actions ->
+// out (B,H,W,latent_pad) int8 bits.  wact is conv1's action half summed
+// over taps ((actions, hidden) int32).  h1..h4 are caller-allocated
+// (B,H,W,hidden) int8 scratch; h5 reuses h3's buffer.  k1..k6 are the
+// weights of pack_kernel_weights ((tiles, cout, 128) int8; conv1 over the
+// latent_pad channels), s1..s6 the f32 dequant scales (conv5/conv6:
+// the main tensor's; s5b, s6b the skip's under a split order, else null),
+// b1..b6 the f32 biases, r1..r5 the f32 requant multipliers.  order: 0
+// joint, 1 (pa*sa + pb*sb) + b, 2 (pa*sa + b) + pb*sb.  head: 1 logits > 0,
+// 2 sigmoid > 0.5, 3 Philox sample keyed by seed.  (tw, tws, rows,
+// row_blocks, col_blocks) is the 256-pixel tile plan of
 // ops/kernels/fused_transition.py::tile_plan, the second five its 128-pixel
-// plan.  Requires hidden a multiple of 16 up to 128 (pack_operands pads a
-// model's width to one with zero channels); any action count.  Returns the
-// first launch error, or 0.
+// plan.  hidden is the model's width rounded up to 16 (pack_operands pads
+// its operands with zero channels); any width, any latent, any action
+// count.  Returns the first launch error, or 0.
 extern "C" int scm_int8_step(
     const void* z, const void* act, const void* wact,
     const void* k1, const void* k2, const void* k3, const void* k4,
@@ -175,39 +174,57 @@ extern "C" int scm_int8_step(
     const void* b5, const void* b6,
     const void* r1, const void* r2, const void* r3, const void* r4, const void* r5,
     void* h1, void* h2, void* h3, void* h4, void* out,
-    int batch, int height, int width, int hidden, int actions, int order, int head,
-    int tw, int tws, int rows, int row_blocks, int col_blocks,
+    int batch, int height, int width, int hidden, int latent_pad, int actions, int order,
+    int head, int tw, int tws, int rows, int row_blocks, int col_blocks,
     int tw2, int tws2, int rows2, int row_blocks2, int col_blocks2,
     unsigned long long seed, void* stream_handle) {
   const Plan p256{tw, tws, rows, row_blocks, col_blocks};
   const Plan p128{tw2, tws2, rows2, row_blocks2, col_blocks2};
-  const bool split = order != JOINT;
-  if (batch < 1 || height < 1 || width < 1 || actions < 0 || order < JOINT ||
-      order > BIAS_FIRST ||
-      head < LOGIT || head > SAMPLE || (split && (s5b == nullptr || s6b == nullptr)) ||
+  const int split = order != JOINT;
+  if (batch < 1 || height < 1 || width < 1 || hidden < UNIT || hidden % UNIT ||
+      latent_pad < UNIT || latent_pad % UNIT || actions < 0 || order < JOINT ||
+      order > BIAS_FIRST || head < LOGIT || head > SAMPLE ||
+      (split && (s5b == nullptr || s6b == nullptr)) ||
       !plan_ok(p256, height, width, 256) || !plan_ok(p128, height, width, 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_handle;
-  const void* w[6] = {k1, k2, k3, k4, k5, k6};
-  const void* s[6] = {s1, s2, s3, s4, s5, s6};
-  const void* b[6] = {b1, b2, b3, b4, b5, b6};
-  const void* rq[5] = {r1, r2, r3, r4, r5};
+  typedef const signed char* In;
+  typedef signed char* Out;
+  typedef const float* F;
   ConvArgs a{};
   a.batch = batch; a.height = height; a.width = width; a.actions = actions;
-  a.head = head; a.seed = seed;
-#define SCM_STEP(HID)                                                          \
-  case HID:                                                                    \
-    return (int)step<HID>(a, z, act, wact, w, s, s5b, s6b, b, rq, h1, h2, h3, \
-                          h4, out, order, p256, p128, stream);
-  switch (hidden) {
-    SCM_STEP(16) SCM_STEP(32) SCM_STEP(48) SCM_STEP(64) SCM_STEP(80) SCM_STEP(96)
-    SCM_STEP(112) SCM_STEP(128)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SCM_STEP
+  a.seed = seed;
+  cudaError_t e;
+
+  // conv1: z -> h1; the one-hot action half is a per-sample int32 bias
+  a.in0 = (In)z; a.in1 = nullptr; a.c0 = latent_pad; a.c1 = 0;
+  a.act = (const float*)act; a.wact = (const int*)wact; a.order = JOINT; a.head = REQUANT;
+  a.scale0 = (F)s1; a.scale1 = nullptr; a.bias = (F)b1; a.requant = (F)r1;
+  a.out = (Out)h1;
+  if ((e = conv(a, k1, hidden, 0, p256, p128, stream)) != cudaSuccess) return (int)e;
+
+  a.act = nullptr; a.wact = nullptr; a.c0 = hidden;
+  // conv2: h1 -> h2; conv3: h2 -> h3; conv4: h3 -> h4
+  a.in0 = (In)h1; a.scale0 = (F)s2; a.bias = (F)b2; a.requant = (F)r2; a.out = (Out)h2;
+  if ((e = conv(a, k2, hidden, 0, p256, p128, stream)) != cudaSuccess) return (int)e;
+  a.in0 = (In)h2; a.scale0 = (F)s3; a.bias = (F)b3; a.requant = (F)r3; a.out = (Out)h3;
+  if ((e = conv(a, k3, hidden, 0, p256, p128, stream)) != cudaSuccess) return (int)e;
+  a.in0 = (In)h3; a.scale0 = (F)s4; a.bias = (F)b4; a.requant = (F)r4; a.out = (Out)h4;
+  if ((e = conv(a, k4, hidden, 0, p256, p128, stream)) != cudaSuccess) return (int)e;
+
+  // conv5: [h4 | h2] -> h5 (into h3's buffer), in the packing's order
+  a.in0 = (In)h4; a.in1 = (In)h2; a.c1 = hidden; a.order = order;
+  a.scale0 = (F)s5; a.scale1 = split ? (F)s5b : nullptr; a.bias = (F)b5; a.requant = (F)r5;
+  a.out = (Out)h3;
+  if ((e = conv(a, k5, hidden, split, p256, p128, stream)) != cudaSuccess) return (int)e;
+
+  // conv6: [h5 | h1] -> logits -> the head's int8 bits
+  a.in0 = (In)h3; a.in1 = (In)h1; a.scale0 = (F)s6; a.scale1 = split ? (F)s6b : nullptr;
+  a.bias = (F)b6; a.requant = nullptr; a.head = head; a.out = (Out)out;
+  return (int)conv(a, k6, latent_pad, split, p256, p128, stream);
 }
 
-// Dynamic shared memory a block of the int8 conv kernel takes at output
+// Dynamic shared memory a block of the int8 conv kernel takes at N tile
 // width bn (16: the head), or -1.
 extern "C" int scm_int8_smem(int bn) {
   switch (bn) {

@@ -1,10 +1,13 @@
 // One circular 3x3 conv of the bf16 transition step as a Hopper kernel: the
-// template behind csrc/fused_transition.cu.  Each hidden width is
+// template behind csrc/fused_transition.cu.  Each output tile width is
 // instantiated in its own translation unit (transition_h*.cu,
 // transition_head.cu) so that the parallel nvcc calls share the build.
 //
 // An implicit GEMM: M = the batch's pixels, N = the output channels, K =
-// 9 taps x the input channels, bf16 products summed in f32.
+// 9 taps x the input channels, bf16 products summed in f32.  One launch
+// computes one N tile of BN <= 128 channels (the accumulators of 128 fill a
+// thread's registers), from channel n_off of a layer ldo channels wide; a
+// wider layer is several launches (fused_transition.cu's tile plan).
 //
 // Block: three warpgroups, one block an SM, a persistent walk over tiles.
 //   * Tile: up to 256 output pixels of one image -- whole rows when W <= 64
@@ -21,8 +24,9 @@
 //   * A goes to wgmma from registers (a shifted row cannot be a shared
 //     memory descriptor): the ldmatrix x4 fragment of 16 rows x 16 K is the
 //     per-warp A fragment of wgmma m64nNk16.
-//   * B (weights): one producer thread streams (chunk, tap) tiles of N rows
-//     x 64 K (the layout pack_transition_weights emits as "k1".."k6") by TMA
+//   * B (weights): one producer thread streams (chunk, tap) tiles of BN rows
+//     x 64 K (rows n_off .. n_off + BN - 1 of the layout
+//     pack_transition_weights emits as "k1".."k6") by TMA
 //     with the 128-byte swizzle into a ring of mbarrier-guarded stages; the
 //     consumers read them through wgmma descriptors.  One block's 256-pixel
 //     tile reuses every weight tile for 4 m64 products.
@@ -69,12 +73,13 @@ constexpr int A_BYTES = A_SLOTS * 128;
 struct ConvArgs {
   const __nv_bfloat16* in0;   // NHWC, c0 channels
   const __nv_bfloat16* in1;   // NHWC, c1 channels (second K segment), or null
-  const float* bias;          // (cout)
+  const float* bias;          // (ldo)
   const float* act;           // (batch, actions) one-hot, conv1 only (else null)
-  const float* wact;          // (actions, cout): conv1's action weights summed over taps
-  __nv_bfloat16* out;         // NHWC, cout channels
+  const float* wact;          // (actions, ldo): conv1's action weights summed over taps
+  __nv_bfloat16* out;         // NHWC, ldo channels
   int batch, height, width;
   int c0, c1;                 // channels of each K segment (multiples of 16)
+  int ldo, n_off;             // the layer's output channels; this tile's first
   int actions;
   int tw, tws, rows;          // tile width, input slots a row, tile rows
   int row_blocks, col_blocks; // tiles per image
@@ -109,6 +114,19 @@ struct Layout {
 __device__ __forceinline__ int mod(int i, int n) {
   const int r = i % n;
   return r < 0 ? r + n : r;
+}
+
+// Whether a hidden-layer instantiation compiles chunks of kc k16 steps.  A
+// K segment of c channels cuts into 64-channel chunks (4 steps) and a tail
+// of c % 64 / 16.  KANY = 0 compiles what a layer of the tile's own width
+// reads -- conv1's 16 latents (1), whole chunks and the width's tail -- and
+// nothing more, since a compiled chunk size it never reads cost h128 1%
+// (nine taps of wgmma unrolled); KANY = 1 compiles all four, for the N
+// tiles of wider layers and conv1 at other latent widths.  The head takes
+// any input either way.
+template <int BN, int HEAD, int KANY>
+__host__ __device__ constexpr bool compiles_chunk(int kc) {
+  return HEAD != LRELU || KANY || kc == 1 || (kc == 4 && BN >= 64) || kc == BN % 64 / 16;
 }
 
 // One K chunk (KC k16 steps of one 64-channel slice) through all 9 taps for
@@ -166,7 +184,7 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[2][BN / 2], uint32_t abuf
   release(prev);
 }
 
-template <int BN, int HEAD>
+template <int BN, int HEAD, int KANY>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
   using L = Layout<BN>;
@@ -187,7 +205,7 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
   const int tiles_per_image = p.row_blocks * p.col_blocks;
   const int tiles = p.batch * tiles_per_image;
 
-  for (int i = tid; i < BN; i += THREADS) bias_s[i] = p.bias[i];
+  for (int i = tid; i < BN; i += THREADS) bias_s[i] = p.bias[p.n_off + i];
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -211,7 +229,7 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
             mbar_wait(&empty[stage], phase ^ 1);
             mbar_arrive_expect_tx(&full[stage], L::STAGE_BYTES);
             tma_load_2d(base_s + L::B_OFF + stage * L::STAGE_BYTES, &wmap, &full[stage], 0,
-                        (c * 9 + tap) * BN);
+                        (c * 9 + tap) * p.ldo + p.n_off);
             if (++stage == L::STAGES) { stage = 0; phase ^= 1; }
           }
     }
@@ -312,7 +330,7 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
           for (int k = 0; k < 8; ++k)
             if (a0 + k < p.actions) {
               x[k] = arow[a0 + k];
-              w[k] = p.wact[(a0 + k) * BN + ch];
+              w[k] = p.wact[(a0 + k) * p.ldo + p.n_off + ch];
             }
 #pragma unroll
           for (int k = 0; k < 8; ++k)
@@ -333,28 +351,24 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
       const bool seg0 = c < n0;
       const int kc = min(CHUNK, (seg0 ? p.c0 : p.c1) - (seg0 ? c : c - n0) * CHUNK) / 16;
       const uint32_t abuf = a_base + (it & 1) * A_BYTES;
-      // The widths the step takes (latent 16, hidden a multiple of 16 up to
-      // 128) cut into chunks of 16, 32, 48 or 64 channels: each chunk's
-      // ldmatrix reads only the channels its copy wrote.  A hidden layer
-      // (N = the hidden width) reads conv1's latents (1 k16 step), whole
-      // 64-channel slices (4) and the width's tail (N % 64 / 16), and only
-      // those are compiled in; the head (N = 16) reads any hidden width.
-      constexpr bool ANY = HEAD != LRELU;
-      constexpr int TAIL = BN % 64 / 16;
+      // Every K segment is a multiple of 16 channels, so a chunk is 16, 32,
+      // 48 or 64 channels: each chunk's ldmatrix reads only the channels its
+      // copy wrote.  Only the chunk sizes compiles_chunk names are compiled
+      // in; the host picks KANY so that no other size reaches the kernel.
       if (kc == 1) {
         chunk_mma<BN, 1>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
       } else if (kc == 2) {
-        if constexpr (ANY || TAIL == 2)
+        if constexpr (compiles_chunk<BN, HEAD, KANY>(2))
           chunk_mma<BN, 2>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
         else
           __trap();
       } else if (kc == 3) {
-        if constexpr (ANY || TAIL == 3)
+        if constexpr (compiles_chunk<BN, HEAD, KANY>(3))
           chunk_mma<BN, 3>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
         else
           __trap();
       } else {
-        if constexpr (ANY || BN >= 64)
+        if constexpr (compiles_chunk<BN, HEAD, KANY>(4))
           chunk_mma<BN, 4>(acc, abuf, rbase, col, TWS, lane, b_stages, full, empty, stage, phase);
         else
           __trap();
@@ -390,9 +404,11 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
               if (HEAD == THRESHOLD) {
                 y[e] = prob > 0.5f ? 1.f : 0.f;
               } else {
+                // the element's flat index in (B, H, W, ldo): the bits do
+                // not depend on the tiling
                 const long long gm = ((long long)b * H + y0 + r) * W + x0 + x;
                 const float u = philox_uniform(
-                    (unsigned long long)gm * BN + 8 * j + 2 * t4 + e, p.seed);
+                    (unsigned long long)gm * p.ldo + p.n_off + 8 * j + 2 * t4 + e, p.seed);
                 y[e] = u < prob ? 1.f : 0.f;
               }
             }
@@ -415,7 +431,7 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
         const int r = m / TW, x = m - r * TW;
         if (r < r_eff && x < w_eff) {
           const long long gm = ((long long)b * H + y0 + r) * W + x0 + x;
-          *reinterpret_cast<uint4*>(p.out + gm * BN + q * 8) =
+          *reinterpret_cast<uint4*>(p.out + gm * p.ldo + p.n_off + q * 8) =
               *reinterpret_cast<const uint4*>(stg + row * L::STG_PITCH + q * 16);
         }
       }
@@ -425,10 +441,10 @@ conv3x3_wgmma(const ConvArgs p, const __grid_constant__ CUtensorMap wmap) {
 }
 
 // Launch over a persistent grid (one block an SM).
-template <int BN, int HEAD>
+template <int BN, int HEAD, int KANY>
 cudaError_t launch_conv(const ConvArgs& a, const CUtensorMap& wmap, cudaStream_t stream) {
   using L = Layout<BN>;
-  cudaError_t e = cudaFuncSetAttribute(conv3x3_wgmma<BN, HEAD>,
+  cudaError_t e = cudaFuncSetAttribute(conv3x3_wgmma<BN, HEAD, KANY>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
@@ -437,7 +453,7 @@ cudaError_t launch_conv(const ConvArgs& a, const CUtensorMap& wmap, cudaStream_t
     return e;
   const long long tiles = (long long)a.batch * a.row_blocks * a.col_blocks;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  conv3x3_wgmma<BN, HEAD><<<grid, THREADS, L::ALLOC, stream>>>(a, wmap);
+  conv3x3_wgmma<BN, HEAD, KANY><<<grid, THREADS, L::ALLOC, stream>>>(a, wmap);
   return cudaGetLastError();
 }
 

@@ -44,12 +44,12 @@ _I = ctypes.c_int
 # cut them to 32 bits.
 _SIGNATURES = {
     "scm_transition_step": [_P] * 2 + [_P] * 6 + [_P] * 6 + [_P] + [_P] * 5
-                           + [_I] * 12 + [_I, ctypes.c_ulonglong, _P],
+                           + [_I] * 11 + [_I, ctypes.c_ulonglong, _P],
     "scm_transition_smem": [_I],
     "scm_decode": [_P] * 6 + [_I] * 6 + [_P],
-    "scm_decode_smem": [],
+    "scm_decode_smem": [_I, _I],
     "scm_int8_step": [_P] * 3 + [_P] * 6 + [_P] * 8 + [_P] * 6 + [_P] * 5
-                     + [_P] * 5 + [_I] * 7 + [_I] * 10 + [ctypes.c_ulonglong, _P],
+                     + [_P] * 5 + [_I] * 8 + [_I] * 10 + [ctypes.c_ulonglong, _P],
     "scm_int8_smem": [_I],
 }
 

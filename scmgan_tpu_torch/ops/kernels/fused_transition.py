@@ -19,15 +19,17 @@ from scmgan_tpu_torch.ops.kernels import _build
 from scmgan_tpu_torch.ops.spectral_norm import sn_weight
 
 # conv1's input (latent + actions) is padded to 32 channels in the plain
-# version's weights, conv6's output to one 16-wide MMA tile.  Both transition
-# kernels are instantiated at every multiple of 16 up to MAX_HIDDEN (HIDDENS);
-# a model of another width runs at the next one on zero-padded weights
-# (``kernel_hidden``).  Wider needs output-channel tiles: the accumulators of
-# a 128-channel tile already fill a thread's registers.
+# version's weights, conv6's output to whole 16-wide MMA tiles.  Both
+# transition kernels are instantiated at every multiple of 16 up to
+# MAX_N_TILE (N_TILES): a layer of another width runs at the next multiple of
+# 16 on zero-padded weights (``kernel_hidden``), and one wider than
+# MAX_N_TILE as several output-channel tiles (``n_tiles``), since the
+# accumulators of a 128-channel tile already fill a thread's registers.  The
+# head's tiles are 16 wide.
 K_STEP = 32
 N_TILE_HEAD = 16
-MAX_HIDDEN = 128
-HIDDENS = tuple(range(N_TILE_HEAD, MAX_HIDDEN + 1, N_TILE_HEAD))
+MAX_N_TILE = 128
+N_TILES = tuple(range(N_TILE_HEAD, MAX_N_TILE + 1, N_TILE_HEAD))
 # The kernel's K chunk (input channels copied to shared memory at a time, one
 # 128-byte swizzled row a pixel), its tile (output pixels a block) and the
 # input pixels a chunk buffer holds.
@@ -36,17 +38,28 @@ TILE_M = 256
 A_SLOTS = 6 * 66
 
 
-def _round_up(x: int, m: int) -> int:
+def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
 def kernel_hidden(hidden: int) -> int:
     """The width the transition kernels run a ``hidden``-channel model at:
-    the next multiple of 16 (one of HIDDENS).  Raises past MAX_HIDDEN."""
-    if not 0 < hidden <= MAX_HIDDEN:
-        raise ValueError(f"the transition kernels take hidden widths 1 to {MAX_HIDDEN}; "
-                         f"got {hidden}")
-    return _round_up(hidden, N_TILE_HEAD)
+    the next multiple of 16."""
+    if hidden < 1:
+        raise ValueError(f"a transition has at least one hidden channel; got {hidden}")
+    return round_up(hidden, N_TILE_HEAD)
+
+
+def n_tiles(cout: int, head: bool = False) -> list:
+    """The output-channel tiles a kernel layer of ``cout`` channels (a
+    multiple of 16) runs as, ``(first channel, width)`` each, one launch a
+    tile: hidden layers in tiles of MAX_N_TILE and the rest (144 = 128 + 16,
+    208 = 128 + 80), the head in tiles of 16.  Mirrors ``conv`` in
+    ``csrc/fused_transition.cu`` and ``csrc/int8_transition.cu``."""
+    if cout < 1 or cout % N_TILE_HEAD:
+        raise ValueError(f"a kernel layer has a positive multiple of 16 channels; got {cout}")
+    step = N_TILE_HEAD if head else MAX_N_TILE
+    return [(n0, min(step, cout - n0)) for n0 in range(0, cout, step)]
 
 
 def pad_hidden(w9: torch.Tensor, segments, hp: int, cout_pad: int) -> torch.Tensor:
@@ -108,7 +121,8 @@ def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
     axis (main half first, skip half second); conv6's output is zero-padded
     to ``latent_pad``.  Biases stay f32.  Beside them, the kernel's own
     operands: ``k1``..``k6`` in ``kernel_layout`` (conv1 over the latent
-    channels only, conv5/conv6 as two K segments read from two tensors), and
+    channels only, zero-padded to ``latent_pad`` as the wrapper pads the
+    latents, conv5/conv6 as two K segments read from two tensors), and
     ``w1_act``, conv1's one-hot action weights summed over taps in f32
     (actions, hidden): the conv of a spatially constant map under circular
     padding is that sum, so the kernel adds it as a per-sample bias.
@@ -121,8 +135,8 @@ def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
     ``transition_probs`` computes there.
     """
     c_in1 = latent_dim + num_actions
-    c_in1_pad = _round_up(c_in1, K_STEP)
-    latent_pad = _round_up(latent_dim, N_TILE_HEAD)
+    c_in1_pad = round_up(c_in1, K_STEP)
+    latent_pad = round_up(latent_dim, N_TILE_HEAD)
 
     def mat(w):
         kh, kw, ci, co = w.shape
@@ -145,17 +159,19 @@ def pack_transition_weights(params: dict, latent_dim: int, num_actions: int,
         "w6": mat(w6),
     }
     hidden = ws["w2"].shape[-1]
-    hp = _round_up(hidden, N_TILE_HEAD)
+    hp = kernel_hidden(hidden)
     segments = {1: (c_in1_pad,), 2: (hidden,), 3: (hidden,), 4: (hidden,),
                 5: (hidden, hidden), 6: (hidden, hidden)}
-    kin = {1: (latent_dim,), 2: (hp,), 3: (hp,), 4: (hp,), 5: (hp, hp), 6: (hp, hp)}
+    kin = {1: (latent_pad,), 2: (hp,), 3: (hp,), 4: (hp,), 5: (hp, hp), 6: (hp, hp)}
     wp = {i: pad_hidden(ws[f"w{i}"], segments[i], c_in1_pad if i == 1 else hp,
                         latent_pad if i == 6 else hp) for i in segments}
+    w1_act = wp[1][:, latent_dim:c_in1, :].to(torch.float32).sum(dim=0).contiguous()
+    # conv1 reads the latent rows, zero-padded to latent_pad
+    wp[1] = pad_hidden(wp[1][:, :latent_dim], (latent_dim,), latent_pad, hp)
     return {
         **ws,
         **{f"k{i}": kernel_layout(wp[i], kin[i]) for i in kin},
-        "w1_act": wp[1][:, latent_dim:c_in1, :].to(torch.float32)
-                  .sum(dim=0).contiguous(),
+        "w1_act": w1_act,
         **{f"b{i}": bias(f"conv{i}", hp - hidden) for i in range(1, 6)},
         "b6": bias("conv6", latent_pad - latent_dim),
         "latent_dim": latent_dim, "num_actions": num_actions, "hidden": hidden,
@@ -246,15 +262,16 @@ def fused_transition(packed: dict, z: torch.Tensor,
                      seed: int = 0) -> torch.Tensor:
     """Drop-in inference replacement for ``models.world_model.transition``.
 
-    z: (B, H, W, latent); action_onehot: (B, A), any number of actions; any
-    hidden width up to MAX_HIDDEN.  Returns (B, H, W, latent)
-    binary latents in z's dtype: thresholded at 0.5, or with ``sample``
-    drawn as Bernoulli(p) from the Philox stream keyed by ``seed``.
+    z: (B, H, W, latent); action_onehot: (B, A); any latent and hidden width
+    and any number of actions.  Returns (B, H, W, latent) binary latents in
+    z's dtype: thresholded at 0.5, or with ``sample`` drawn as Bernoulli(p)
+    from the Philox stream keyed by ``seed``.
     A CUDA tensor launches the kernel (``packed`` in bf16 on the card); a
     CPU tensor takes ``transition_plain`` in the packed weights' dtype.
     """
     b, h, w, latent = z.shape
-    shape_u = (b, h, w, packed["latent_pad"])
+    latent_pad = packed["latent_pad"]
+    shape_u = (b, h, w, latent_pad)
     if z.device.type == "cpu":
         u = torch.from_numpy(philox_uniform(seed, shape_u)) if sample else None
         return transition_plain(packed, z, action_onehot, u=u,
@@ -265,8 +282,6 @@ def fused_transition(packed: dict, z: torch.Tensor,
     if (latent != packed["latent_dim"] or num_actions != packed["num_actions"]
             or action_onehot.shape[0] != b):
         raise ValueError("z / action shapes do not match the packed weights")
-    if latent != N_TILE_HEAD or packed["latent_pad"] != N_TILE_HEAD:
-        raise ValueError(f"the kernel takes latent {N_TILE_HEAD}; got {latent}")
     hidden = kernel_hidden(packed["hidden"])
     weights = [packed[f"k{i}"] for i in range(1, 7)]
     biases = [packed[f"b{i}"] for i in range(1, 7)]
@@ -276,6 +291,8 @@ def fused_transition(packed: dict, z: torch.Tensor,
     if any(t.dtype != torch.bfloat16 for t in weights):
         raise ValueError("the kernel takes weights packed in bfloat16")
     zb = z.to(torch.bfloat16).contiguous()
+    if latent != latent_pad:    # conv1 reads latent_pad channels: then zeros
+        zb = torch.nn.functional.pad(zb, (0, latent_pad - latent))
     act = action_onehot.to(device=z.device, dtype=torch.float32).contiguous()
     scratch = torch.empty((4, b, h, w, hidden), dtype=torch.bfloat16,
                           device=z.device)
@@ -287,7 +304,7 @@ def fused_transition(packed: dict, z: torch.Tensor,
         *(t.data_ptr() for t in weights), *(t.data_ptr() for t in biases),
         packed["w1_act"].data_ptr(),
         *(s.data_ptr() for s in scratch), out.data_ptr(),
-        b, h, w, latent, num_actions, hidden, packed["latent_pad"],
+        b, h, w, num_actions, hidden, latent_pad,
         plan["tw"], plan["tws"], plan["rows"], plan["row_blocks"],
         plan["col_blocks"], int(sample), seed,
         torch.cuda.current_stream(z.device).cuda_stream)

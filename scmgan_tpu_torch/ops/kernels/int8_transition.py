@@ -39,20 +39,20 @@ from scmgan_tpu_torch.ops.kernels.fused_transition import (
     kernel_hidden,
     pad_hidden,
     philox_uniform,
+    round_up,
     tile_plan,
 )
 from scmgan_tpu_torch.ops.spectral_norm import sn_weight
 
 ACT_SCALE = 8.0 / 127.0   # static scale: leaky-ReLU activations in [0, 8]
 
-# The kernel's K plan: K runs over (tap, 16-channel unit) of each input
-# tensor ("segment"), two units a k32 wgmma step, four steps (128 bytes) a
-# weight tile; a segment holds at most 128 channels (one 128-byte slot a
-# pixel in shared memory) and starts a new tile.  The head's output is one
-# 16-wide MMA tile.  Instantiated for the same hidden widths as the bf16
-# kernel (``fused_transition.HIDDENS``, every multiple of 16 up to 128), a
-# model of another width padded to the next.  Split-order convs at N >= 80
-# run on 128-pixel tiles.
+# The kernel's K plan: K runs over (tap, 16-channel unit) of each K segment,
+# two units a k32 wgmma step, four steps (128 bytes) a weight tile; a
+# segment is an input tensor, or 128 channels of a wider one (one 128-byte
+# slot a pixel in shared memory), and starts a new tile.  The output runs in
+# N tiles as the bf16 kernel's (``fused_transition.n_tiles``), the head's
+# 16 wide, at the model's width padded to the next multiple of 16.
+# Split-order convs at N >= 80 run on 128-pixel tiles.
 UNIT = 16
 STEP_UNITS = 2
 TILE_UNITS = 8
@@ -61,10 +61,6 @@ LATENT_TILE = 16
 SPLIT_TILE_M = 128
 ORDERS = {"joint": 0, "sum_first": 1, "bias_first": 2}
 HEADS = {"logit": 1, "sigmoid": 2, "sample": 3}   # conv6's; 0 is the hidden layers' requant
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
 
 
 def _quantize(w: torch.Tensor):
@@ -78,20 +74,32 @@ def _quantize(w: torch.Tensor):
     return q.reshape(w.shape), scale
 
 
+def k_segments(segments) -> list:
+    """The K segments of input tensors of ``segments`` channels
+    (concatenated along Cin), in the kernel's order: ``(tensor, first
+    channel, channels)`` each, a tensor in segments of MAX_SEGMENT channels
+    and the rest.  Mirrors ``seg_of`` in ``csrc/int8_conv.cuh``."""
+    out = []
+    for t, c in enumerate(segments):
+        if c % UNIT or c < UNIT:
+            raise ValueError(f"a segment takes a positive multiple of {UNIT} channels; "
+                             f"got {c}")
+        out += [(t, off, min(MAX_SEGMENT, c - off)) for off in range(0, c, MAX_SEGMENT)]
+    return out
+
+
 def k_plan(segments) -> list:
     """The kernel's K order for input tensors of ``segments`` channels
-    (concatenated along Cin): one entry per 16-byte K slot, ``(segment, tap,
-    unit)`` or None for zero padding.  Within a segment the units run tap by
-    tap, unit by unit, two to a k32 step (so a step may span two taps); each
-    segment is padded to whole weight tiles, so no step mixes two
-    segments."""
+    (concatenated along Cin): one entry per 16-byte K slot, ``(tensor, tap,
+    unit)`` (the unit's index in its tensor) or None for zero padding.
+    Within a K segment (``k_segments``) the units run tap by tap, unit by
+    unit, two to a k32 step (so a step may span two taps); each segment is
+    padded to whole weight tiles, so no step mixes two segments."""
     plan = []
-    for seg, c in enumerate(segments):
-        if c % UNIT or not 0 < c <= MAX_SEGMENT:
-            raise ValueError(f"a segment takes a multiple of {UNIT} channels, at "
-                             f"most {MAX_SEGMENT}; got {c}")
-        units = [(seg, tap, j) for tap in range(9) for j in range(c // UNIT)]
-        plan += units + [None] * (_round_up(len(units), TILE_UNITS) - len(units))
+    for t, off, c in k_segments(segments):
+        units = [(t, tap, (off + j * UNIT) // UNIT) for tap in range(9)
+                 for j in range(c // UNIT)]
+        plan += units + [None] * (round_up(len(units), TILE_UNITS) - len(units))
     return plan
 
 
@@ -135,9 +143,9 @@ def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
         raise ValueError(f"order must be one of {sorted(ORDERS)}, not {order!r}")
     latent = biases["conv6"].shape[0]
     hidden = weights["conv2"].shape[-1]
-    hp = _round_up(hidden, UNIT)
+    hp = kernel_hidden(hidden)
     num_actions = weights["conv1"].shape[2] - latent
-    latent_pad = _round_up(latent, LATENT_TILE)
+    latent_pad = round_up(latent, LATENT_TILE)
     f32 = torch.float32
 
     def mat(name, cout_pad=None):
@@ -167,15 +175,11 @@ def pack_operands(weights: dict, scales: dict, biases: dict, requant: dict,
     else:
         s += [tuple(hvec(x) for x in scales["conv5"]),
               tuple(pad_out(x) for x in scales["conv6"])]
-    lu = _round_up(latent, UNIT)
-    # the kernel's weight layout holds at most MAX_SEGMENT channels a tensor;
-    # the plain version takes any width
-    kw = None if hp > MAX_SEGMENT else (
-        [pack_kernel_weights(pad_hidden(w[0], (latent,), lu, hp), (lu,))]
-        + [pack_kernel_weights(pad_hidden(x, (hidden,), hp, hp), (hp,)) for x in w[1:4]]
-        + [pack_kernel_weights(pad_hidden(w[4], (hidden, hidden), hp, hp), (hp, hp)),
-           pack_kernel_weights(pad_hidden(w[5], (hidden, hidden), hp, latent_pad),
-                               (hp, hp))])
+    kw = ([pack_kernel_weights(pad_hidden(w[0], (latent,), latent_pad, hp), (latent_pad,))]
+          + [pack_kernel_weights(pad_hidden(x, (hidden,), hp, hp), (hp,)) for x in w[1:4]]
+          + [pack_kernel_weights(pad_hidden(w[4], (hidden, hidden), hp, hp), (hp, hp)),
+             pack_kernel_weights(pad_hidden(w[5], (hidden, hidden), hp, latent_pad),
+                                 (hp, hp))])
     return {
         "order": order, "latent_dim": latent, "num_actions": num_actions,
         "hidden": hidden, "latent_pad": latent_pad,
@@ -338,8 +342,8 @@ def int8_transition(packed: dict, z: torch.Tensor,
                     action_onehot: torch.Tensor, *, head: str = "logit",
                     seed: int = 0) -> torch.Tensor:
     """One int8 transition step.  z: (B, H, W, latent) int8 in {0, 1};
-    action_onehot: (B, A), any number of actions; any hidden width up to
-    ``fused_transition.MAX_HIDDEN``.  Returns int8 latents (B, H, W, latent); the
+    action_onehot: (B, A); any latent and hidden width and any number of
+    actions.  Returns int8 latents (B, H, W, latent); the
     "sample" head draws from the Philox stream keyed by ``seed``
     (``fused_transition.philox_uniform``).
 
@@ -361,17 +365,15 @@ def int8_transition(packed: dict, z: torch.Tensor,
             or action_onehot.shape != (b, num_actions)):
         raise ValueError("z must be int8 and z / action shapes must match the "
                          "packed weights")
-    if packed["latent_pad"] != LATENT_TILE:
-        raise ValueError(f"the kernel takes latent <= {LATENT_TILE}; got {latent}")
     hidden = kernel_hidden(packed["hidden"])
     for t in _operand_tensors(packed):
         if t.device != z.device or not t.is_contiguous():
             raise ValueError("packed operands must be contiguous on z's device")
-    # conv1 reads the latents as one 16-channel unit (zero-padded if fewer)
-    if latent == UNIT:
+    # conv1 reads latent_pad channels: the latents, then zeros
+    if latent == packed["latent_pad"]:
         zp = z.contiguous()
     else:
-        zp = torch.zeros((b, h, w, UNIT), dtype=torch.int8, device=z.device)
+        zp = torch.zeros(shape_u, dtype=torch.int8, device=z.device)
         zp[..., :latent] = z
     a = action_onehot.to(device=z.device, dtype=torch.float32).contiguous()
     act = torch.empty((4, b, h, w, hidden), dtype=torch.int8, device=z.device)
@@ -388,7 +390,8 @@ def int8_transition(packed: dict, z: torch.Tensor,
         *s_skip, *(t.data_ptr() for t in packed["b"]),
         *(t.data_ptr() for t in packed["rq"]),
         *(t.data_ptr() for t in act), out.data_ptr(),
-        b, h, w, hidden, num_actions, ORDERS[packed["order"]], HEADS[head],
+        b, h, w, hidden, packed["latent_pad"], num_actions, ORDERS[packed["order"]],
+        HEADS[head],
         *(p[k] for p in plans
           for k in ("tw", "tws", "rows", "row_blocks", "col_blocks")),
         seed, torch.cuda.current_stream(z.device).cuda_stream)

@@ -32,8 +32,9 @@ same way; the mesh phase makes its one-process group with gloo on the
 CPU and runs its pipeline over three CPU devices; the shapes phase checks
 B = 4 and 8 batches (its direct kernel calls counted as launches), calibrates
 on 2 samples of 2 steps at 16x16, makes its h96 student as the student-making
-phase does, and trains centipede at ``--hidden`` with a lookahead-1, depth-2
-plan (324 beams).  Every time it prints is a CPU time or a stub,
+phase does, trains centipede at ``--hidden`` with a lookahead-1, depth-2
+plan (324 beams), and runs its latent-8 and latent-32 free-runs at B = 4 x
+14 and the latent-8 model's two plans on the same shallow beam.  Every time it prints is a CPU time or a stub,
 never a card's.  It finds faults of control flow before a card is used;
 the numbers of the checks (losses, curves, round trips) are the CPU's.
 """
@@ -125,10 +126,6 @@ def main() -> int:
     ap.add_argument("--hidden", type=int, default=32, help="hidden width of the trained model")
     ap.add_argument("--batch", type=int, default=4, help="training batch")
     args = ap.parse_args()
-    if args.mesh_only:
-        # the command line's process has no width flag: its checkpoint is
-        # at the default width, which the phase's template must match
-        args.hidden = 128
 
     map_cuda_to_cpu()
     import chip_smoke as cs
@@ -162,14 +159,17 @@ def main() -> int:
     cs.MPC_GRID_FLOOR = -float("inf")
     cs.MPC_CHECK_BATCHES, cs.MPC_TIME_SHAPES = (2, 4), ((16, 2), (64, 2))
     cli_config = cli.config_from_args
+    # the width of a fresh run's Config: --hidden, but the Config's own in
+    # phase 13, whose command-line process (which has no width flag) writes
+    # the checkpoint that the phase's template loads
+    cli_width = {"hidden_dim": args.hidden}
 
     def small_cli_config(a):
         fresh = a.load_from is None or any(
             d in a.load_from for d in ("chip_smoke_cli_train_", "chip_smoke_centipede_"))
         return cli_config(a).replace(
             batch_size=args.batch, eval_batch_size=4, eval_timesteps=8, mpc_max_steps=4,
-            mpc_lookahead=1, mpc_rollout_depth=2,
-            **({"hidden_dim": args.hidden} if fresh else {}))
+            mpc_lookahead=1, mpc_rollout_depth=2, **(cli_width if fresh else {}))
 
     cli.config_from_args = small_cli_config
     cli_main = cli.main
@@ -206,15 +206,26 @@ def main() -> int:
                                                           n_samples=2, steps=2)
     shapes_phase = cs.shapes_phase
 
-    def shapes_counted(model):
-        kernels = cs.fused_transition, cs.i8.int8_transition
-        cs.fused_transition, cs.i8.int8_transition = (Counted(k) for k in kernels)
+    def shapes_counted(model, ds):
+        kernels = cs.fused_transition, cs.i8.int8_transition, cs.fused_decode
+        cs.fused_transition, cs.i8.int8_transition, cs.fused_decode = (
+            Counted(k) for k in kernels)
         try:
-            return shapes_phase(model)
+            return shapes_phase(model, ds)
         finally:
-            cs.fused_transition, cs.i8.int8_transition = kernels
+            cs.fused_transition, cs.i8.int8_transition, cs.fused_decode = kernels
 
     cs.shapes_phase = shapes_counted
+    mesh_phase = cs.mesh_phase
+
+    def mesh_at_cli_width(*a, **kw):
+        cli_width.clear()
+        try:
+            return mesh_phase(*a, **kw)
+        finally:
+            cli_width["hidden_dim"] = args.hidden
+
+    cs.mesh_phase = mesh_at_cli_width
     cs.MESH_ITERS, cs.MESH_EVAL_TIMESTEPS, cs.MESH_STEP_ITERS = 3, 8, 3
     cs.MESH_BATCH = args.batch
     # the command line's own process counts the evaluation's plain-path calls
@@ -247,7 +258,8 @@ cli.main(sys.argv[1:])""")
     elif args.shapes_only:
         torch.cuda.is_available = lambda: True
         model = cs.load_model(cs.BUNDLE, device="cuda")
-        print("launches", cs.shapes_phase(model)["launches"])
+        ds = datasource.allocate_datasource(cs.ENV, seed=cs.SEED, device="cpu")
+        print("launches", cs.shapes_phase(model, ds)["launches"])
         rc = 0
     elif args.mpc_only:
         print("launches", cs.mpc_phase()["launches"])
@@ -276,7 +288,7 @@ cli.main(sys.argv[1:])""")
         cs._build.build = lambda: pathlib.Path("rehearsal-without-a-build.so")
         cs._build.library = lambda: types.SimpleNamespace(
             scm_transition_smem=lambda n: 0, scm_int8_smem=lambda n: 0,
-            scm_decode_smem=lambda: 0)
+            scm_decode_smem=lambda lp, hp: 0)
         cs._build.ptxas_report = lambda: []
         cs.faulthandler.dump_traceback_later = lambda *a, **k: None
         rc = cs.main()

@@ -48,10 +48,10 @@ BATCH = 100
 # variant -> {source: [(text, replacement)]}; every edit must apply.
 TMA = ("            mbar_arrive_expect_tx(&full[stage], L::STAGE_BYTES);\n"
        "            tma_load_2d(base_s + L::B_OFF + stage * L::STAGE_BYTES, &wmap, &full[stage], 0,\n"
-       "                        (c * 9 + tap) * BN);")
+       "                        (c * 9 + tap) * p.ldo + p.n_off);")
 TMA_S8 = ("          mbar_arrive_expect_tx(&full[stage], L::STAGE_BYTES);\n"
           "          tma_load_2d(base_s + L::B_OFF + stage * L::STAGE_BYTES, &wmap, &full[stage], 0,\n"
-          "                      t * BN);")
+          "                      t * p.ldo + p.n_off);")
 VARIANTS = {
     "full": {},
     "no_mma": {
@@ -61,8 +61,8 @@ VARIANTS = {
             ("      if (4 * t + k < STEPS) WgmmaS8<BN>::run(acc[i][S], frag[buf][k], desc + 2 * k);",
              "      ;")],
         "fused_decoder.cu": [
-            ("            mma_bf16_16816(acc[u][0], a, bw[0][0], bw[0][1]);\n"
-             "            mma_bf16_16816(acc[u][1], a, bw[1][0], bw[1][1]);", ""),
+            ("                mma_bf16_16816(acc[u][0], a, bw[0][0], bw[0][1]);\n"
+             "                mma_bf16_16816(acc[u][1], a, bw[1][0], bw[1][1]);", ""),
             ("          mma_bf16_16816(acc2[i], a, b0, b1);", "")],
     },
     "no_epilogue": {

@@ -201,7 +201,7 @@ def test_k_plan(segments, steps):
 
 
 def test_k_plan_refuses_other_widths():
-    for c in (8, 144):
+    for c in (0, 8, 24, 136):
         with pytest.raises(ValueError, match="segment"):
             ti.k_plan((c,))
 
@@ -276,6 +276,33 @@ def test_int8_kernel_matches_plain_on_card(card, packing, b, hw, hidden, actions
               "sum_first": lambda: ti.pack_quantized_weights(params),
               "bias_first": lambda: ti.pack_int8_weights(params)}[packing]()
     z, a = _inputs(5, b=b, hw=hw, latent=16, actions=actions)
+    zt = torch.from_numpy(z).to(card, torch.int8)
+    at = torch.from_numpy(a).to(card)
+    for head in ("logit", "sigmoid"):
+        got = ti.int8_transition(packed, zt, at, head=head)
+        want = ti.int8_transition_plain(packed, zt, at, head=head)
+        assert int((got != want).sum()) == 0
+
+
+SHAPES = [(16, 144, 5), (8, 200, 5), (16, 256, 4), (4, 64, 5), (8, 128, 5), (32, 128, 5),
+          (64, 256, 18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["joint", "sum_first", "bias_first"])
+@pytest.mark.parametrize("b,hw", [(4, 64), (3, 12)], ids=["full", "ragged"])
+@pytest.mark.parametrize("latent,hidden,actions", SHAPES,
+                         ids=[f"l{l}-h{h}-a{a}" for l, h, a in SHAPES])
+def test_int8_kernel_matches_plain_at_every_shape(card, packing, b, hw, latent, hidden,
+                                                  actions):
+    """Bit for bit past 128 channels (N tiles, K split into 128-channel
+    segments, the split orders' sums per tensor) and at other latents."""
+    gen = torch.Generator(device=card).manual_seed(latent * 1000 + hidden)
+    params = init_transition(gen, latent, actions, hidden=hidden)
+    packed = {"joint": lambda: tq.quantize_transition(params).packed,
+              "sum_first": lambda: ti.pack_quantized_weights(params),
+              "bias_first": lambda: ti.pack_int8_weights(params)}[packing]()
+    z, a = _inputs(5, b=b, hw=hw, latent=latent, actions=actions)
     zt = torch.from_numpy(z).to(card, torch.int8)
     at = torch.from_numpy(a).to(card)
     for head in ("logit", "sigmoid"):

@@ -17,7 +17,7 @@ import scmgan_tpu.ops.pallas.fused_decoder as jfd
 import scmgan_tpu.ops.pallas.fused_transition as jft
 from scmgan_tpu.models import world_model as jwm
 from scmgan_tpu.ops.conv import conv2d as jconv2d
-from scmgan_tpu_torch.models.world_model import init_transition
+from scmgan_tpu_torch.models.world_model import init_decoder, init_transition
 from scmgan_tpu_torch.ops.conv import conv2d as tconv2d
 from scmgan_tpu_torch.ops.kernels import _build as tkb
 from scmgan_tpu_torch.ops.kernels import fused_decoder as tfd
@@ -402,6 +402,52 @@ def test_decoder_kernel_matches_plain_on_card(card, bundle, hw):
     packed = tfd.pack_decoder_weights(m.decoder, LATENT)
     z, _ = _inputs(7, b=4, hw=hw)
     z = torch.from_numpy(z).to(card)
+    got = tfd.fused_decode(packed, z).float()
+    want = tfd.decode_plain(packed, z, dtype=torch.bfloat16).float()
+    assert bool(((got - want).abs() <= BF16_TOL + BF16_TOL * want.abs()).all())
+
+
+# (latent, hidden, actions) past one 128-channel tile and at other latents
+SHAPES = [(16, 144, 5), (8, 200, 5), (16, 256, 4), (4, 64, 5), (8, 128, 5), (32, 128, 5),
+          (64, 256, 18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [64, 12])
+@pytest.mark.parametrize("latent,hidden,actions", SHAPES,
+                         ids=[f"l{l}-h{h}-a{a}" for l, h, a in SHAPES])
+def test_transition_kernel_matches_plain_at_every_shape(card, latent, hidden, actions, hw):
+    """Output-channel tiles past 128 and conv1 / the head at other latent
+    widths: both heads against the plain version (the sample head's
+    uniforms from the host's Philox draw)."""
+    gen = torch.Generator(device=card).manual_seed(latent * 1000 + hidden)
+    params = init_transition(gen, latent, actions, hidden=hidden)
+    packed = tft.pack_transition_weights(params, latent, actions)
+    rng = np.random.default_rng(hidden)
+    z = torch.from_numpy((rng.random((4, hw, hw, latent)) > 0.5).astype(np.float32)).to(card)
+    a = torch.from_numpy(np.eye(actions, dtype=np.float32)[rng.integers(0, actions, 4)]).to(card)
+    p = tft.transition_probs(packed, z, a, dtype=torch.bfloat16)[..., :latent]
+    got = tft.fused_transition(packed, z, a)
+    flips = got != tft.transition_plain(packed, z, a, dtype=torch.bfloat16)
+    assert float(flips.float().mean()) < 1e-3
+    assert bool(((p[flips] - 0.5).abs() < P_EDGE_BF16).all())
+    u = torch.from_numpy(tft.philox_uniform(3, (4, hw, hw, packed["latent_pad"]))).to(card)
+    sampled = tft.fused_transition(packed, z, a, sample=True, seed=3)
+    diff = sampled != tft.transition_plain(packed, z, a, u=u, dtype=torch.bfloat16)
+    assert bool(((u[..., :latent][diff] - p[diff]).abs() < P_EDGE_BF16).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [64, 12])
+@pytest.mark.parametrize("color", [1, 3])
+@pytest.mark.parametrize("latent", [4, 8, 32, 64, 80])
+def test_decoder_kernel_matches_plain_at_every_latent(card, latent, color, hw):
+    """Any latent L and intermediate width 4L, zero-padded to multiples of
+    16; past 64 latents the input is read in groups of 64 channels."""
+    gen = torch.Generator(device=card).manual_seed(latent + color)
+    packed = tfd.pack_decoder_weights(init_decoder(gen, latent, color), latent)
+    rng = np.random.default_rng(latent)
+    z = torch.from_numpy((rng.random((4, hw, hw, latent)) > 0.5).astype(np.float32)).to(card)
     got = tfd.fused_decode(packed, z).float()
     want = tfd.decode_plain(packed, z, dtype=torch.bfloat16).float()
     assert bool(((got - want).abs() <= BF16_TOL + BF16_TOL * want.abs()).all())
